@@ -1,0 +1,28 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel ported.
+
+Each module holds a kernel's wrapper (`*_cuda`, which launches the kernel
+for CUDA tensors and counts launches in its `launches` attribute) and its
+plain PyTorch version (`*_plain`, which the wrapper runs for CPU tensors).
+The CUDA sources are in csrc/; _build.py compiles them at first launch.
+"""
+
+from .pool import q8gavgpool_cuda, q8gavgpool_plain
+from .q8dwconv import q8dwconv_cuda, q8dwconv_plain
+from .q8gemm import q8gemm_cuda, q8gemm_plain
+from .vpu_ops import q8vadd_cuda, q8vadd_plain
+
+KERNELS = {
+    "q8gemm": q8gemm_cuda,
+    "q8dwconv": q8dwconv_cuda,
+    "q8vadd": q8vadd_cuda,
+    "q8gavgpool": q8gavgpool_cuda,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}

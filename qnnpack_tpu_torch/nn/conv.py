@@ -1,0 +1,133 @@
+"""Quantized convolution: dense (groups = 1) and depthwise.
+
+Zero-point algebra as in qnnpack_tpu/nn/conv.py: the input is padded with
+the input zero point, so a padded tap adds exactly zero to
+sum (a - za)(w - zw), like QNNPACK's zero buffer (src/convolution.c:330-339).
+
+  - Depthwise (groups == channels, one channel per group) runs the q8dwconv
+    kernel, which reads the window straight from NHWC.
+  - Dense (groups == 1) is a zero-point-padded im2col, with K ordered
+    [kh, kw, cin] as the pack lays W out, followed by the q8gemm kernel:
+    the packed conv weights [Kh, Kw, Icpg, O] are the GEMM's [K, N] and the
+    folded bias is the same, since count = Kh*Kw*Icpg = K.
+
+Kernel layout: O x Kh x Kw x Icpg (uint8), QNNPACK's NHWC operator
+convention.  Grouped conv with more than one channel per group, deconv and
+the TPU lowerings (phase layouts, split and einsum grouped 1x1) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.q8dwconv import q8dwconv_cuda
+from ..kernels.q8gemm import q8gemm_cuda
+from .dtypes import biased_zero_point, u8_to_biased_i8
+from .packing import PackedGemmWeights, as_tensor, fold_bias
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedConvWeights:
+    """Conv weights in HWIO int8 layout with folded bias.
+
+    w:           int8 [Kh, Kw, Icpg, O] biased (value - 128), contiguous
+    bias_folded: int32 [O]
+    """
+
+    w: torch.Tensor
+    bias_folded: torch.Tensor
+    kernel_height: int
+    kernel_width: int
+    group_input_channels: int
+    group_output_channels: int
+    groups: int
+    input_zero_point: int
+    kernel_zero_point: int
+
+    @property
+    def izp_biased(self) -> int:
+        return biased_zero_point(self.input_zero_point)
+
+    @property
+    def kzp_biased(self) -> int:
+        return biased_zero_point(self.kernel_zero_point)
+
+    def as_gemm(self) -> PackedGemmWeights:
+        """The dense (groups = 1) weights as GEMM weights [Kh*Kw*Icpg, O]."""
+        k = self.kernel_height * self.kernel_width * self.group_input_channels
+        return PackedGemmWeights(
+            w=self.w.reshape(k, -1), bias_folded=self.bias_folded, k=k,
+            n=self.w.shape[-1], input_zero_point=self.input_zero_point,
+            kernel_zero_point=self.kernel_zero_point)
+
+
+def pack_conv_weights(kernel, bias, input_zero_point: int,
+                      kernel_zero_point: int, groups: int = 1, *,
+                      device=None) -> PackedConvWeights:
+    """Pack conv weights (pack_q8conv_w analogue, pack.h:51-133).
+
+    kernel: uint8 [O, Kh, Kw, Icpg] with O = groups * group_output_channels.
+    """
+    kernel = as_tensor(kernel, torch.uint8, device)
+    o, kh, kw, icpg = kernel.shape
+    if o % groups:
+        raise ValueError("output channels must divide evenly into groups")
+    if bias is None:
+        bias = torch.zeros((o,), dtype=torch.int32, device=kernel.device)
+    bias = as_tensor(bias, torch.int32, kernel.device)
+
+    w = u8_to_biased_i8(kernel)  # [O, Kh, Kw, Icpg]
+    w_sums = w.to(torch.int64).sum(dim=(1, 2, 3))  # [O]
+    bias_folded = fold_bias(bias, w_sums, kh * kw * icpg, input_zero_point,
+                            kernel_zero_point)
+    return PackedConvWeights(
+        w=w.permute(1, 2, 3, 0).contiguous(), bias_folded=bias_folded,
+        kernel_height=int(kh), kernel_width=int(kw),
+        group_input_channels=int(icpg), group_output_channels=int(o // groups),
+        groups=int(groups), input_zero_point=int(input_zero_point),
+        kernel_zero_point=int(kernel_zero_point))
+
+
+def _pad_input(a_u8, padding, value: int):
+    """Pad uint8 NHWC spatially with a constant (the input zero point)."""
+    (pt, pb), (pl_, pr) = padding
+    if pt == pb == pl_ == pr == 0:
+        return a_u8
+    return F.pad(a_u8, (0, 0, pl_, pr, pt, pb), value=value)
+
+
+def im2col(a_u8, packed: PackedConvWeights, strides=(1, 1),
+           padding=((0, 0), (0, 0)), dilation=(1, 1)):
+    """Zero-point-padded patches [B*Ho*Wo, Kh*Kw*C], K ordered [kh, kw, c]."""
+    a = _pad_input(a_u8, padding, packed.input_zero_point)
+    b, hp, wp, c = a.shape
+    kh, kw = packed.kernel_height, packed.kernel_width
+    (sh, sw), (dh, dw) = strides, dilation
+    ho = (hp - ((kh - 1) * dh + 1)) // sh + 1
+    wo = (wp - ((kw - 1) * dw + 1)) // sw + 1
+    taps = [a[:, ky * dh:ky * dh + (ho - 1) * sh + 1:sh,
+              kx * dw:kx * dw + (wo - 1) * sw + 1:sw, :]
+            for ky in range(kh) for kx in range(kw)]
+    return torch.stack(taps, dim=3).reshape(b * ho * wo, kh * kw * c), \
+        (b, ho, wo)
+
+
+def q8conv2d(a_u8, packed: PackedConvWeights, rparams, strides=(1, 1),
+             padding=((0, 0), (0, 0)), dilation=(1, 1)):
+    """Quantized 2D convolution: uint8 NHWC -> uint8 NHWC."""
+    strides, dilation = tuple(strides), tuple(dilation)
+    if (packed.groups > 1 and packed.group_input_channels == 1
+            and packed.group_output_channels == 1):
+        return q8dwconv_cuda(a_u8, packed, rparams, strides, padding,
+                             dilation)
+    if packed.groups != 1:
+        raise NotImplementedError(
+            "grouped conv with more than one channel per group is not "
+            "ported yet")
+    cols, (b, ho, wo) = im2col(a_u8, packed, strides, padding, dilation)
+    y = q8gemm_cuda(cols, packed.as_gemm(), rparams)
+    return y.reshape(b, ho, wo, -1)

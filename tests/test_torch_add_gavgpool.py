@@ -1,0 +1,117 @@
+"""Parity of the port's residual add (q8vadd) and global average pool
+(q8gavgpool) with the JAX package: quant.requantize.add_quantize and
+q8vadd_pallas, nn.pool.q8gavgpool and q8gavgpool_pallas (interpret mode).
+Inputs come from a numpy seed; comparisons are exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from qnnpack_tpu.kernels import q8gavgpool_pallas, q8vadd_pallas
+from qnnpack_tpu.nn import pool as jpool
+from qnnpack_tpu.quant import params as jparams
+from qnnpack_tpu.quant.requantize import add_quantize as jadd
+from qnnpack_tpu_torch import kernels as tkernels
+from qnnpack_tpu_torch.kernels.pool import q8gavgpool_cuda, q8gavgpool_plain
+from qnnpack_tpu_torch.kernels.vpu_ops import q8vadd_cuda, q8vadd_plain
+from qnnpack_tpu_torch.nn import pool as tpool
+from qnnpack_tpu_torch.quant import params as tparams
+
+RNG = np.random.default_rng(0xADD5)
+
+
+def u8(*shape):
+    return RNG.integers(0, 256, shape, dtype=np.int64).astype(np.uint8)
+
+
+ADD_PARAMS = [
+    (128, 128, 128, 1.0, 1.0, 0, 255),       # the MobileNetV2 residual add
+    (10, 200, 128, 0.125, 1.75, 0, 255),
+    (127, 63, 128, 0.25, 0.75, 20, 240),
+    (0, 255, 3, 2**-14, 255.0, 0, 255),
+    (77, 1, 250, 100.0, 0.01, 5, 250),
+]
+
+
+@pytest.mark.parametrize("p", ADD_PARAMS, ids=[str(p[:5]) for p in ADD_PARAMS])
+@pytest.mark.parametrize("shape", [(1, 56, 56, 24), (2, 7, 7, 5), (1000,)])
+def test_q8vadd_matches_jax(shape, p):
+    jp = jparams.compute_add_quant_params(*p)
+    tp = tparams.compute_add_quant_params(*p)
+    a, b = u8(*shape), u8(*shape)
+    want = np.asarray(jadd(jnp.asarray(a), jnp.asarray(b), jp))
+    got = q8vadd_cuda(torch.from_numpy(a), torch.from_numpy(b), tp)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("p", ADD_PARAMS[:3], ids=[str(p[:5])
+                                                   for p in ADD_PARAMS[:3]])
+def test_q8vadd_plain_matches_pallas(p):
+    jp = jparams.compute_add_quant_params(*p)
+    tp = tparams.compute_add_quant_params(*p)
+    a, b = u8(3, 9, 11, 7), u8(3, 9, 11, 7)
+    want = np.asarray(q8vadd_pallas(jnp.asarray(a), jnp.asarray(b), jp,
+                                    tile_m=8, tile_n=128, interpret=True))
+    np.testing.assert_array_equal(
+        q8vadd_plain(torch.from_numpy(a), torch.from_numpy(b), tp).numpy(),
+        want)
+
+
+def test_q8vadd_rejects_shape_mismatch():
+    tp = tparams.compute_add_quant_params(*ADD_PARAMS[0])
+    with pytest.raises(ValueError):
+        q8vadd_cuda(torch.zeros(3, 4, dtype=torch.uint8),
+                    torch.zeros(4, 3, dtype=torch.uint8), tp)
+
+
+GAP_CASES = [
+    # b, s, c, izp, scale, ozp, omin, omax
+    (1, 49, 1280, 128, 1.0 / 49, 128, 0, 255),   # MobileNetV2 7x7x1280
+    (3, 49, 40, 128, 1.0 / 49, 128, 0, 255),
+    (2, 9, 33, 7, 3.7 / 9, 100, 20, 230),
+    (4, 1, 17, 0, 0.9, 0, 0, 255),
+    (2, 200, 8, 255, 2**-10, 255, 0, 255),
+]
+
+
+@pytest.mark.parametrize("case", GAP_CASES, ids=[str(c[:4]) for c in GAP_CASES])
+def test_q8gavgpool_matches_jax(case):
+    b, s, c, izp, scale, ozp, omin, omax = case
+    args = (-izp * s, scale, ozp, omin, omax)
+    jp = jparams.compute_avgpool_quant_params(*args, input_zero_point=izp)
+    tp = tparams.compute_avgpool_quant_params(*args, input_zero_point=izp)
+    x = u8(b, s, c)
+    want = np.asarray(jpool.q8gavgpool(jnp.asarray(x), jp, axis=1))
+    got = tpool.q8gavgpool(torch.from_numpy(x), tp, axis=1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    pallas = np.asarray(q8gavgpool_pallas(jnp.asarray(x), jp,
+                                          interpret=True))
+    np.testing.assert_array_equal(
+        q8gavgpool_plain(torch.from_numpy(x), tp).numpy(), pallas)
+
+
+def test_q8gavgpool_over_nhwc_axes():
+    # The pool over H of an NHWC tensor: other axes keep their shape.
+    jp = jparams.compute_avgpool_quant_params(-128 * 5, 0.2, 128,
+                                              input_zero_point=128)
+    tp = tparams.compute_avgpool_quant_params(-128 * 5, 0.2, 128,
+                                              input_zero_point=128)
+    x = u8(2, 5, 3, 4)
+    want = np.asarray(jpool.q8gavgpool(jnp.asarray(x), jp, axis=1))
+    got = tpool.q8gavgpool(torch.from_numpy(x), tp, axis=1)
+    assert tuple(got.shape) == want.shape == (2, 3, 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cpu_wrappers_count_nothing():
+    tkernels.reset_launch_counts()
+    tp = tparams.compute_avgpool_quant_params(-128 * 4, 0.25, 128,
+                                              input_zero_point=128)
+    q8gavgpool_cuda(torch.from_numpy(u8(1, 4, 8)), tp)
+    ap = tparams.compute_add_quant_params(*ADD_PARAMS[0])
+    q8vadd_cuda(torch.from_numpy(u8(5)), torch.from_numpy(u8(5)), ap)
+    assert tkernels.launch_counts() == {"q8gemm": 0, "q8dwconv": 0,
+                                        "q8vadd": 0, "q8gavgpool": 0}

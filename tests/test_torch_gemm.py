@@ -1,0 +1,148 @@
+"""Parity of the port's weight packing and quantized GEMM with the JAX
+package: nn.packing.pack_gemm_weights, nn.gemm.q8gemm_acc / q8gemm, and
+the q8gemm kernel's plain version against the XLA path and both Pallas
+GEMM kernels (run in interpret mode, as tests/test_kernels_pallas.py
+does).  Inputs come from a numpy seed; comparisons are exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from qnnpack_tpu.kernels.q8gemm import q8gemm_pallas
+from qnnpack_tpu.kernels.q8gemm_small import q8gemm_small_pallas
+from qnnpack_tpu.nn import gemm as jgemm
+from qnnpack_tpu.nn import packing as jpacking
+from qnnpack_tpu.nn.requant_dispatch import make_requant_params as jmake
+from qnnpack_tpu.quant.params import \
+    compute_per_channel_fp32_params as jper_channel
+from qnnpack_tpu_torch import kernels as tkernels
+from qnnpack_tpu_torch.kernels.q8gemm import q8gemm_cuda, q8gemm_plain
+from qnnpack_tpu_torch.nn import gemm as tgemm
+from qnnpack_tpu_torch.nn import packing as tpacking
+from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params as tmake
+from qnnpack_tpu_torch.quant.params import \
+    compute_per_channel_fp32_params as tper_channel
+
+RNG = np.random.default_rng(0x6E88)
+
+
+def u8(*shape):
+    return RNG.integers(0, 256, shape, dtype=np.int64).astype(np.uint8)
+
+
+def make_weights(n, k, izp, kzp):
+    kernel = u8(n, k)
+    bias = RNG.integers(-30000, 30000, n, dtype=np.int64).astype(np.int32)
+    return (jpacking.pack_gemm_weights(kernel, bias, izp, kzp),
+            tpacking.pack_gemm_weights(kernel, bias, izp, kzp))
+
+
+def requant_pair(scheme, n):
+    if scheme == "per_channel":
+        scales = RNG.uniform(1e-4, 3e-3, n)
+        return jper_channel(scales, 119), tper_channel(scales, 119)
+    return (jmake(scheme, 0.0021, 119, 3, 250),
+            tmake(scheme, 0.0021, 119, 3, 250))
+
+
+@pytest.mark.parametrize("izp,kzp", [(128, 128), (121, 103), (0, 255),
+                                     (255, 0)])
+@pytest.mark.parametrize("n,k", [(16, 27), (33, 64), (7, 1)])
+def test_pack_gemm_weights_matches_jax(n, k, izp, kzp):
+    jp, tp = make_weights(n, k, izp, kzp)
+    np.testing.assert_array_equal(tp.w.numpy(), np.asarray(jp.w))
+    np.testing.assert_array_equal(tp.bias_folded.numpy(),
+                                  np.asarray(jp.bias_folded))
+    assert (tp.k, tp.n, tp.kzp_biased) == (jp.k, jp.n, jp.kzp_biased)
+    assert tp.w.dtype == torch.int8 and tp.w.is_contiguous()
+    assert tp.bias_folded.dtype == torch.int32
+
+
+def test_pack_gemm_weights_without_bias():
+    kernel = u8(9, 13)
+    jp = jpacking.pack_gemm_weights(kernel, None, 7, 200)
+    tp = tpacking.pack_gemm_weights(kernel, None, 7, 200)
+    np.testing.assert_array_equal(tp.bias_folded.numpy(),
+                                  np.asarray(jp.bias_folded))
+
+
+@pytest.mark.parametrize("scheme", ["q31", "fp32", "precise", "gemmlowp",
+                                    "per_channel"])
+@pytest.mark.parametrize("izp,kzp", [(128, 128), (121, 103)])
+@pytest.mark.parametrize("shape", [(37, 45, 19), (2, 5, 3, 40, 24),
+                                   (1, 1280, 100)],
+                         ids=["rank2", "rank4", "fc_m1"])
+def test_q8gemm_matches_jax(shape, izp, kzp, scheme):
+    *lead, k, n = shape
+    jp, tp = make_weights(n, k, izp, kzp)
+    jr, tr = requant_pair(scheme, n)
+    a = u8(*lead, k)
+    want_acc = np.asarray(jgemm.q8gemm_acc(jnp.asarray(a), jp))
+    got_acc = tgemm.q8gemm_acc(torch.from_numpy(a), tp)
+    np.testing.assert_array_equal(got_acc.numpy(), want_acc)
+    want = np.asarray(jgemm.q8gemm(jnp.asarray(a), jp, jr))
+    got = tgemm.q8gemm(torch.from_numpy(a), tp, tr)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("scheme", ["q31", "fp32", "per_channel"])
+@pytest.mark.parametrize("m,k,n,kzp", [(70, 40, 48, 128), (33, 27, 16, 103),
+                                       (5, 130, 129, 90)])
+def test_plain_kernel_matches_pallas_small(m, k, n, kzp, scheme):
+    jp, tp = make_weights(n, k, 121, kzp)
+    jr, tr = requant_pair(scheme, n)
+    a = u8(m, k)
+    want = np.asarray(q8gemm_small_pallas(jnp.asarray(a), jp, jr, tile_m=32,
+                                          interpret=True))
+    np.testing.assert_array_equal(
+        q8gemm_plain(torch.from_numpy(a), tp, tr).numpy(), want)
+
+
+@pytest.mark.parametrize("scheme", ["q31", "fp32", "gemmlowp"])
+@pytest.mark.parametrize("m,k,n,kzp", [(40, 200, 130, 128),
+                                       (33, 257, 64, 103)])
+def test_plain_kernel_matches_pallas_k_tiled(m, k, n, kzp, scheme):
+    # tile_k = 128 makes the Pallas kernel carry its accumulator and row
+    # sum across K steps: the contract the CUDA kernel's in-block K loop
+    # takes over.
+    jp, tp = make_weights(n, k, 7, kzp)
+    jr, tr = requant_pair(scheme, n)
+    a = u8(m, k)
+    want = np.asarray(q8gemm_pallas(jnp.asarray(a), jp, jr, tile_m=32,
+                                    tile_n=128, tile_k=128, interpret=True))
+    np.testing.assert_array_equal(
+        q8gemm_plain(torch.from_numpy(a), tp, tr).numpy(), want)
+
+
+def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
+    jp, tp = make_weights(24, 31, 128, 128)
+    _, tr = requant_pair("fp32", 24)
+    a = torch.from_numpy(u8(9, 31))
+    tkernels.reset_launch_counts()
+    np.testing.assert_array_equal(q8gemm_cuda(a, tp, tr).numpy(),
+                                  q8gemm_plain(a, tp, tr).numpy())
+    assert q8gemm_cuda.launches == 0
+
+
+def test_wrapper_rejects_wrong_depth():
+    _, tp = make_weights(8, 16, 128, 128)
+    _, tr = requant_pair("q31", 8)
+    with pytest.raises(ValueError):
+        q8gemm_cuda(torch.zeros(4, 15, dtype=torch.uint8), tp, tr)
+
+
+def test_large_accumulators_wrap_like_int32():
+    # A large bias pushes the accumulator past int32; both packages wrap.
+    k, n = 64, 8
+    kernel = np.zeros((n, k), np.uint8)
+    bias = np.full(n, 2**31 - 5, np.int64).astype(np.int32)
+    jp = jpacking.pack_gemm_weights(kernel, bias, 0, 128)
+    tp = tpacking.pack_gemm_weights(kernel, bias, 0, 128)
+    a = np.full((3, k), 255, np.uint8)
+    want = np.asarray(jax.jit(jgemm.q8gemm_acc)(jnp.asarray(a), jp))
+    got = tgemm.q8gemm_acc(torch.from_numpy(a), tp)
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -1,0 +1,202 @@
+"""Rules of the PyTorch/CUDA port that a CPU run can check.
+
+- qnnpack_tpu_torch and chip_smoke.py import neither jax nor qnnpack_tpu;
+- the entry points raise when a GPU is asked for and absent;
+- a forward on CPU tensors runs the plain versions and launches nothing;
+- the ctypes bindings agree with the C entry points of kernels/csrc/, and
+  the scheme codes with csrc/requant.cuh;
+- chip_smoke.py fails, printing no result, without a GPU or without the
+  rest of the repository.
+"""
+
+import ast
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from qnnpack_tpu_torch import kernels as tkernels
+from qnnpack_tpu_torch.device import resolve_device
+from qnnpack_tpu_torch.entry import entry
+from qnnpack_tpu_torch.kernels import _build
+from qnnpack_tpu_torch.models import mobilenet_v2 as tm
+from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+from qnnpack_tpu_torch.quant import params as tparams
+from qnnpack_tpu_torch.serving import InferenceServer
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "qnnpack_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax(path):
+    for mod in imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "qnnpack_tpu"), \
+            f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_port_files_were_found():
+    assert len(PORT_FILES) > 15
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_defaults_to_gpu_and_raises_without_one(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        entry()
+
+
+def test_builder_model_and_server_raise_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tm.build_mobilenet_v2(np.random.default_rng(0), input_size=32)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tm.MobileNetV2.build(0)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        InferenceServer(lambda x: x, (2,))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_forward_launches_no_kernel():
+    model = tm.MobileNetV2.build(
+        1, device="cpu", input_size=32, num_classes=10,
+        cfg=[(1, 8, 1, 1), (6, 16, 2, 2), (6, 16, 1, 1)], stem_channels=8,
+        head_channels=32)
+    tkernels.reset_launch_counts()
+    y = model(torch.zeros(2, 32, 32, 3, dtype=torch.uint8))
+    assert tuple(y.shape) == (2, 10)
+    assert tkernels.launch_counts() == {"q8gemm": 0, "q8dwconv": 0,
+                                        "q8vadd": 0, "q8gavgpool": 0}
+
+
+def test_check_cuda_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.check_cuda("a", torch.zeros(2, 2, dtype=torch.uint8),
+                          torch.uint8, 2)
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.find_nvcc()
+
+
+def test_library_name_follows_the_sources(monkeypatch, tmp_path):
+    for src in _build.CSRC.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    assert before == _build.library_path()
+    with open(tmp_path / "requant.cuh", "a") as f:
+        f.write("\n")
+    assert _build.library_path() != before
+    assert before.parent == _build.BUILD_DIR
+
+
+def test_four_kernels_with_no_library_calls():
+    names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    assert names == ["q8dwconv.cu", "q8gavgpool.cu", "q8gemm.cu",
+                     "q8vadd.cu"]
+    for p in _build.CSRC.iterdir():
+        text = p.read_text()
+        for lib in ("cublas", "cudnn", "cutlass", "_int_mm"):
+            assert lib not in text.lower(), f"{p.name} mentions {lib}"
+        includes = set(re.findall(r"#include [<\"]([^>\"]+)", text))
+        assert includes <= {"cuda_runtime.h", "cstdint", "requant.cuh"}, \
+            f"{p.name} includes {includes}"
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    assert "-fmad=false" in _build.NVCC_FLAGS
+
+
+_CTYPE = {"void*": "c_void_p", "int": "c_int", "int64_t": "c_long",
+          "float": "c_float"}
+
+
+def c_entry_points():
+    found = {}
+    for src in _build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for name, args in re.findall(
+                r'extern "C" int (qnn_\w+)\(([^)]*)\)', text):
+            types = []
+            for arg in args.split(","):
+                arg = " ".join(arg.replace("const", "").split())
+                typ = arg.rsplit(" ", 1)[0].replace(" *", "*")
+                types.append(_CTYPE[typ])
+            found[name] = types
+    return found
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    found = c_entry_points()
+    assert set(found) == set(_build.SIGNATURES)
+    for name, argtypes in _build.SIGNATURES.items():
+        got = [t.__name__ for t in argtypes]
+        got = ["c_long" if t == "c_longlong" else t for t in got]
+        assert got == found[name], name
+
+
+def test_scheme_codes_match_requant_header():
+    header = (_build.CSRC / "requant.cuh").read_text()
+    codes = {k: int(v) for k, v in re.findall(r"k(\w+) = (\d+)", header)}
+    cases = {
+        "Q31": make_requant_params("q31", 0.3, 1),
+        "FP32": make_requant_params("fp32", 0.3, 1),
+        "Precise": make_requant_params("precise", 0.3, 1),
+        "Gemmlowp": make_requant_params("gemmlowp", 0.3, 1),
+    }
+    for key, rp in cases.items():
+        assert _build.requant_args(rp, 4, "cpu")[1][0] == codes[key]
+    pc = tparams.compute_per_channel_fp32_params([0.1, 0.2], 3)
+    scales, args = _build.requant_args(pc, 2, "cpu")
+    assert args[0] == codes["FP32PerChannel"]
+    assert scales.dtype == torch.float32 and scales.tolist() == \
+        [np.float32(0.1), np.float32(0.2)]
+    with pytest.raises(ValueError):
+        _build.requant_args(pc, 3, "cpu")
+
+
+def test_q31_bounds_are_passed_absolute():
+    rp = make_requant_params("q31", 0.3, 100, 20, 230)
+    _, args = _build.requant_args(rp, 1, "cpu")
+    assert args[:6] == [0, rp.multiplier, rp.shift, 100, 20, 230]
+
+
+def run_chip_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = run_chip_smoke(tmp_path)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py runs for real")
+    res = run_chip_smoke(ROOT)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
