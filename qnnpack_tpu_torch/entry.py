@@ -1,8 +1,11 @@
-"""Entry point: the quantized MobileNetV2 1.0_224 forward on the GPU.
+"""Entry point: a quantized 224 forward on the GPU.
 
 The counterpart of the repository's __graft_entry__.entry(): the same seed
-(0), the same config (224, fp32 requant) and the same example input, so the
-port's forward is comparable byte for byte with the JAX package's."""
+(0), the same config (224, fp32 requant) and the same example input, drawn
+from the builder's RNG after the weights, so the port's forward is
+comparable byte for byte with the JAX package's.  model="mobilenet_v2"
+(the default) is MobileNetV2 1.0_224; model="resnet18" is the zoo's
+ResNet-18 through the graph runtime, as bench_models.py builds it."""
 
 from __future__ import annotations
 
@@ -10,19 +13,32 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models import zoo
+from .models.graph import graph_forward
 from .models.mobilenet_v2 import build_mobilenet_v2, mobilenet_v2_forward
 
+MODELS = ("mobilenet_v2", "resnet18")
 
-def entry(device="cuda"):
-    """(fn, example_args): fn(params, x) -> uint8 logits [1, 1000]."""
+
+def entry(device="cuda", model="mobilenet_v2"):
+    """(fn, example_args): fn(params, x) -> uint8 logits [1, 1000];
+    fn.spec is the model's static spec."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
-    params, spec = build_mobilenet_v2(rng, input_size=224, requant="fp32",
-                                      device=dev)
+    if model == "mobilenet_v2":
+        params, spec = build_mobilenet_v2(rng, input_size=224, requant="fp32",
+                                          device=dev)
+        forward = mobilenet_v2_forward
+    elif model == "resnet18":
+        params, spec = zoo.resnet18(rng, requant="fp32", device=dev)
+        forward = graph_forward
+    else:
+        raise ValueError(f"unknown model {model!r}; expected one of {MODELS}")
     x = torch.from_numpy(rng.integers(0, 256, (1, 224, 224, 3),
                                       dtype=np.int64).astype(np.uint8)).to(dev)
 
     def fn(params, x):
-        return mobilenet_v2_forward(params, spec, x)
+        return forward(params, spec, x)
 
+    fn.spec = spec
     return fn, (params, x)

@@ -6,9 +6,12 @@ plain PyTorch version (`*_plain`, which the wrapper runs for CPU tensors).
 The CUDA sources are in csrc/; _build.py compiles them at first launch.
 """
 
-from .pool import q8gavgpool_cuda, q8gavgpool_plain
+from .pool import (q8gavgpool_cuda, q8gavgpool_plain, u8maxpool_cuda,
+                   u8maxpool_plain)
+from .q8conv import q8conv_cuda, q8conv_plain
 from .q8dwconv import q8dwconv_cuda, q8dwconv_plain
 from .q8gemm import q8gemm_cuda, q8gemm_plain
+from .q8stem import q8stem_cuda, q8stem_plain
 from .vpu_ops import q8vadd_cuda, q8vadd_plain
 
 KERNELS = {
@@ -16,6 +19,9 @@ KERNELS = {
     "q8dwconv": q8dwconv_cuda,
     "q8vadd": q8vadd_cuda,
     "q8gavgpool": q8gavgpool_cuda,
+    "q8conv": q8conv_cuda,
+    "q8stem": q8stem_cuda,
+    "u8maxpool": u8maxpool_cuda,
 }
 
 

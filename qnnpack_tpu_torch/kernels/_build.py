@@ -41,6 +41,11 @@ SIGNATURES = {
                     + [_I] * 6 + [_F, _P],
     "qnn_q8vadd": [_I, _P, _P, _P, _I64] + [_I] * 7 + [_P],
     "qnn_q8gavgpool": [_I, _P, _P] + [_I] * 9 + [_P],
+    "qnn_q8conv": [_I, _P, _P, _P, _P, _P] + [_I] * 17
+                  + [_I] * 6 + [_F, _P],
+    "qnn_q8stem": [_I, _P, _P, _P, _P, _P] + [_I] * 12
+                  + [_I] * 6 + [_F, _P],
+    "qnn_u8maxpool": [_I, _P, _P] + [_I] * 16 + [_P],
 }
 
 _lock = threading.Lock()
@@ -173,6 +178,15 @@ def requant_args(rparams, channels: int, device):
                 [4, 0, 0, rparams.zero_point, rparams.qmin, rparams.qmax,
                  0.0])
     raise TypeError(f"not a requantization params type: {type(rparams)}")
+
+
+def out_dims(h: int, w: int, kh: int, kw: int, strides, padding,
+             dilation=(1, 1)):
+    """(Ho, Wo) of a Kh x Kw window op over an H x W input."""
+    (pt, pb), (pl_, pr) = padding
+    ho = (h + pt + pb - ((kh - 1) * dilation[0] + 1)) // strides[0] + 1
+    wo = (w + pl_ + pr - ((kw - 1) * dilation[1] + 1)) // strides[1] + 1
+    return ho, wo
 
 
 def check_cuda(name: str, t, dtype, ndim: int) -> None:

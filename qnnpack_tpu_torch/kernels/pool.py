@@ -1,19 +1,72 @@
-"""q8gavgpool: the global average-pool kernel and its plain version.
+"""Pooling kernels and their plain versions: u8maxpool and q8gavgpool.
 
-Port of qnnpack_tpu/kernels/pool.py:q8gavgpool_pallas; the CUDA source,
-with its design and what bounds it, is csrc/q8gavgpool.cu.
+Ports of qnnpack_tpu/kernels/pool.py:u8maxpool_pallas and
+q8gavgpool_pallas; the CUDA sources, with their design and what bounds
+them, are csrc/u8maxpool.cu and csrc/q8gavgpool.cu.
 
-`q8gavgpool_cuda` takes the plain version for CPU tensors only.  For CUDA
-tensors it launches the kernel or raises; there is no fallback.
+Each `*_cuda` wrapper takes the plain version for CPU tensors only.  For
+CUDA tensors it launches the kernel or raises; there is no fallback.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..quant.params import AvgPoolQuantParams
 from ..quant.requantize import avgpool_quantize
 from . import _build
+
+
+def u8maxpool_plain(x_u8, pool_size, strides=None, padding=((0, 0), (0, 0)),
+                    dilation=(1, 1), output_min: int = 0,
+                    output_max: int = 255):
+    """Plain version of the kernel: uint8 NHWC -> uint8 NHWC.
+
+    The window max with padding 0 (the uint8 minimum), then the clamp."""
+    ph, pw = pool_size
+    sh, sw = strides if strides is not None else pool_size
+    dh, dw = dilation
+    _, h, w, _ = x_u8.shape
+    ho, wo = _build.out_dims(h, w, ph, pw, (sh, sw), padding, dilation)
+    (pt, pb), (pl_, pr) = padding
+    x = F.pad(x_u8, (0, 0, pl_, pr, pt, pb), value=0)
+    out = None
+    for ky in range(ph):
+        for kx in range(pw):
+            y0, x0 = ky * dh, kx * dw
+            tap = x[:, y0:y0 + (ho - 1) * sh + 1:sh,
+                    x0:x0 + (wo - 1) * sw + 1:sw, :]
+            out = tap if out is None else torch.maximum(out, tap)
+    return out.clamp(output_min, output_max)
+
+
+def u8maxpool_cuda(x_u8, pool_size, strides=None, padding=((0, 0), (0, 0)),
+                   dilation=(1, 1), output_min: int = 0,
+                   output_max: int = 255):
+    """uint8 max pooling NHWC with a fused clamp to [output_min,
+    output_max]; strides default to the pool size."""
+    if x_u8.dim() != 4:
+        raise ValueError(f"expected NHWC, got {tuple(x_u8.shape)}")
+    if x_u8.device.type == "cpu":
+        return u8maxpool_plain(x_u8, pool_size, strides, padding, dilation,
+                               output_min, output_max)
+    _build.check_cuda("x", x_u8, torch.uint8, 4)
+    ph, pw = pool_size
+    sh, sw = strides if strides is not None else pool_size
+    b, h, w, c = x_u8.shape
+    ho, wo = _build.out_dims(h, w, ph, pw, (sh, sw), padding, dilation)
+    out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=x_u8.device)
+    _build.launch(
+        "qnn_u8maxpool", x_u8.device.index or 0, x_u8.data_ptr(),
+        out.data_ptr(), b, h, w, c, ho, wo, ph, pw, sh, sw, padding[0][0],
+        padding[1][0], dilation[0], dilation[1], output_min, output_max,
+        _build.stream_of(x_u8))
+    u8maxpool_cuda.launches += 1
+    return out
+
+
+u8maxpool_cuda.launches = 0
 
 
 def q8gavgpool_plain(x_u8, params: AvgPoolQuantParams):

@@ -1,0 +1,75 @@
+"""q8conv: the dense-conv kernel and its plain PyTorch version.
+
+Port of qnnpack_tpu/kernels/q8conv.py:q8conv_pallas; the CUDA source, with
+its design and what bounds it, is csrc/q8conv.cu.
+
+`q8conv_cuda` takes the plain version for CPU tensors only.  For CUDA
+tensors it launches the kernel or raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .q8gemm import q8gemm_plain
+
+
+def check_dense(a_u8, packed) -> None:
+    """Raise unless `packed` is a dense (groups = 1) conv over `a_u8`."""
+    if packed.groups != 1:
+        raise ValueError(f"dense conv requires groups == 1, got "
+                         f"{packed.groups}")
+    if a_u8.dim() != 4 or a_u8.shape[3] != packed.group_input_channels:
+        raise ValueError(f"input {tuple(a_u8.shape)} does not match "
+                         f"{packed.group_input_channels} channels")
+
+
+def q8conv_plain(a_u8, packed, rparams, strides=(1, 1),
+                 padding=((0, 0), (0, 0)), dilation=(1, 1)):
+    """Plain version of the kernel: uint8 NHWC -> uint8 NHWC.
+
+    The zero-point-padded im2col [B*Ho*Wo, Kh*Kw*C] times the packed
+    weights viewed as [K, N]: exact, since the folded bias counts
+    Kh*Kw*C = K taps of za'*zw' and the im2col row sum is the window sum of
+    the padded input."""
+    from ..nn.conv import im2col  # nn.conv imports this module
+    check_dense(a_u8, packed)
+    cols, (b, ho, wo) = im2col(a_u8, packed, strides, padding, dilation)
+    return q8gemm_plain(cols, packed.as_gemm(), rparams).reshape(b, ho, wo,
+                                                                 -1)
+
+
+def q8conv_cuda(a_u8, packed, rparams, strides=(1, 1),
+                padding=((0, 0), (0, 0)), dilation=(1, 1)):
+    """Quantized dense conv: uint8 NHWC -> uint8 NHWC (any requant scheme).
+
+    `packed` is an nn.conv.PackedConvWeights with groups == 1."""
+    check_dense(a_u8, packed)
+    if a_u8.device.type == "cpu":
+        return q8conv_plain(a_u8, packed, rparams, strides, padding,
+                            dilation)
+    _build.check_cuda("a", a_u8, torch.uint8, 4)
+    _build.check_cuda("w", packed.w, torch.int8, 4)
+    _build.check_cuda("bias_folded", packed.bias_folded, torch.int32, 1)
+    if packed.w.device != a_u8.device:
+        raise ValueError(f"weights on {packed.w.device}, activations on "
+                         f"{a_u8.device}")
+    b, h, w, c = a_u8.shape
+    kh, kw = packed.kernel_height, packed.kernel_width
+    o = packed.w.shape[-1]
+    ho, wo = _build.out_dims(h, w, kh, kw, strides, padding, dilation)
+    scales, rq = _build.requant_args(rparams, o, a_u8.device)
+    out = torch.empty((b, ho, wo, o), dtype=torch.uint8, device=a_u8.device)
+    _build.launch(
+        "qnn_q8conv", a_u8.device.index or 0, a_u8.data_ptr(),
+        packed.w.data_ptr(), packed.bias_folded.data_ptr(),
+        None if scales is None else scales.data_ptr(), out.data_ptr(),
+        b, h, w, c, ho, wo, o, kh, kw, strides[0], strides[1],
+        padding[0][0], padding[1][0], dilation[0], dilation[1],
+        packed.izp_biased, packed.kzp_biased, *rq, _build.stream_of(a_u8))
+    q8conv_cuda.launches += 1
+    return out
+
+
+q8conv_cuda.launches = 0

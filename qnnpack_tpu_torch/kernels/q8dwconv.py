@@ -16,13 +16,6 @@ from ..nn.requant_dispatch import apply_requant
 from . import _build
 
 
-def _out_dims(h, w, kh, kw, strides, padding, dilation):
-    (pt, pb), (pl_, pr) = padding
-    ho = (h + pt + pb - ((kh - 1) * dilation[0] + 1)) // strides[0] + 1
-    wo = (w + pl_ + pr - ((kw - 1) * dilation[1] + 1)) // strides[1] + 1
-    return ho, wo
-
-
 def _check_depthwise(a_u8, packed):
     if packed.group_input_channels != 1 or packed.group_output_channels != 1:
         raise ValueError("depthwise conv requires one channel per group")
@@ -40,7 +33,7 @@ def q8dwconv_plain(a_u8, packed, rparams, strides=(1, 1),
     _check_depthwise(a_u8, packed)
     b, h, w, c = a_u8.shape
     kh, kw = packed.kernel_height, packed.kernel_width
-    ho, wo = _out_dims(h, w, kh, kw, strides, padding, dilation)
+    ho, wo = _build.out_dims(h, w, kh, kw, strides, padding, dilation)
     (pt, pb), (pl_, pr) = padding
     a = F.pad(a_u8, (0, 0, pl_, pr, pt, pb),
               value=packed.input_zero_point).to(torch.int64) - 128
@@ -75,7 +68,7 @@ def q8dwconv_cuda(a_u8, packed, rparams, strides=(1, 1),
                          f"{a_u8.device}")
     b, h, w, c = a_u8.shape
     kh, kw = packed.kernel_height, packed.kernel_width
-    ho, wo = _out_dims(h, w, kh, kw, strides, padding, dilation)
+    ho, wo = _build.out_dims(h, w, kh, kw, strides, padding, dilation)
     scales, rq = _build.requant_args(rparams, c, a_u8.device)
     out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=a_u8.device)
     _build.launch(

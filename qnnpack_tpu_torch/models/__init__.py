@@ -1,1 +1,13 @@
-"""Quantized models."""
+"""Quantized models: MobileNetV2, and the graph runtime with its zoo."""
+
+from .graph import (  # noqa: F401
+    ConvSpec, GraphBuilder, GraphModel, GraphSpec, graph_forward,
+    params_from_jax,
+)
+from .mobilenet_v2 import (  # noqa: F401
+    INVERTED_RESIDUAL_CFG, MobileNetV2, build_mobilenet_v2,
+    mobilenet_v2_forward,
+)
+from .zoo import (  # noqa: F401
+    mobilenet_v1, resnet18, resnet50, squeezenet_v10, squeezenet_v11, vgg16,
+)

@@ -1,0 +1,315 @@
+"""Graph builder/executor for quantized model assembly.
+
+A port of qnnpack_tpu/models/graph.py: a layer-list IR (inference only)
+that the model zoo builds against.  The builder makes the same numpy RNG
+calls in the same order as the JAX builder, so one seed gives the same raw
+weights, layer specs and requant params.  Tags run here:
+
+    conv     dense or depthwise conv (nn.conv.q8conv2d: q8stem, q8conv or
+             q8dwconv kernel)
+    gemm     1x1-conv / fully-connected (nn.gemm.q8gemm: q8gemm kernel)
+    maxpool  (nn.pool.u8maxpool2d: u8maxpool kernel)
+    gap      (nn.pool.q8gavgpool: q8gavgpool kernel)
+    add      residual add against a saved slot (q8vadd kernel)
+    save / load / concat / split / flatten / pad   data movement
+
+Not ported yet, each raising NotImplementedError with its ROADMAP item:
+the tags avgpool, deconv, shuffle, lut and softargmax, and the builder
+methods deconv and softargmax.  The JAX executor's concat + shuffle
+peephole waits with shuffle.
+
+All activations share one synthetic quantization (scale 0.1, zp 128), so
+adds and concats need no rescale.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from ..kernels.vpu_ops import q8vadd_cuda
+from ..nn.conv import PackedConvWeights, pack_conv_weights, q8conv2d
+from ..nn.gemm import q8gemm
+from ..nn.packing import PackedGemmWeights, as_tensor, pack_gemm_weights
+from ..nn.pool import q8gavgpool, u8maxpool2d
+from ..nn.requant_dispatch import make_requant_params
+from ..quant.params import compute_add_quant_params, compute_avgpool_quant_params
+
+ACT_SCALE = 0.1
+ACT_ZP = 128
+KERNEL_SCALE = 0.02
+KERNEL_ZP = 128
+
+# What each unported tag waits for, by ROADMAP item.
+NOT_PORTED = {
+    "avgpool": "q8avgpool2d and its kernel (ROADMAP Queue 1 item 8, "
+               "Queue 2 item 9)",
+    "deconv": "q8deconv2d (ROADMAP Queue 1 item 7)",
+    "shuffle": "x8zip (ROADMAP Queue 1 item 8)",
+    "lut": "x8lut (ROADMAP Queue 1 item 8)",
+    "softargmax": "u8softargmax (ROADMAP Queue 1 item 8, Queue 2 item 11)",
+}
+
+
+def _not_ported(tag: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"graph tag {tag!r} is not ported yet: it waits for {NOT_PORTED[tag]}")
+
+
+@dataclasses.dataclass
+class ConvSpec:
+    kind: str  # "conv" | "gemm"
+    strides: tuple
+    padding: tuple
+    groups: int
+    rparams: Any
+
+
+@dataclasses.dataclass
+class GraphSpec:
+    layers: list
+    raw_weights: list
+    meta: dict
+
+
+class GraphBuilder:
+    """Accumulates (layers, params) for graph_forward; packs on `device`."""
+
+    def __init__(self, rng: np.random.Generator, requant: str = "fp32", *,
+                 device="cuda"):
+        self.rng = rng
+        self.requant = requant
+        self.device = resolve_device(device)
+        self.layers = []
+        self.params = []
+        self.raw = []
+
+    # -- weight synthesis -------------------------------------------------
+    def _kernel(self, o, kh, kw, i):
+        return self.rng.integers(0, 256, (o, kh, kw, i),
+                                 dtype=np.int64).astype(np.uint8)
+
+    def _bias(self, o):
+        return self.rng.integers(-8000, 8000, (o,),
+                                 dtype=np.int64).astype(np.int32)
+
+    def _emit(self, tag, name, payload, packed=None, raw=None):
+        self.layers.append((tag, name, payload))
+        self.params.append(packed)
+        self.raw.append(raw)
+
+    def _rparams(self, act: str):
+        """act: "relu6" | "relu" | "linear" -> requant clamp window."""
+        omin, omax = 0, 255
+        if act == "relu6":
+            omax = min(255, ACT_ZP + int(round(6.0 / ACT_SCALE)))
+            omin = ACT_ZP
+        elif act == "relu":
+            omin = ACT_ZP
+        scale = ACT_SCALE * KERNEL_SCALE / ACT_SCALE
+        return make_requant_params(self.requant, scale, ACT_ZP, omin, omax)
+
+    # -- layers -----------------------------------------------------------
+    def conv(self, name, cin, cout, kernel=(3, 3), strides=(1, 1),
+             padding=((1, 1), (1, 1)), groups=1, act="relu6"):
+        kh, kw = kernel
+        rp = self._rparams(act)
+        k = self._kernel(cout, kh, kw, cin // groups)
+        b = self._bias(cout)
+        if (kh, kw) == (1, 1) and strides == (1, 1) and groups == 1:
+            packed = pack_gemm_weights(k.reshape(cout, cin), b, ACT_ZP,
+                                       KERNEL_ZP, device=self.device)
+            self._emit("gemm", name, ConvSpec("gemm", strides, padding, 1, rp),
+                       packed, (k, b))
+        else:
+            packed = pack_conv_weights(k, b, ACT_ZP, KERNEL_ZP, groups,
+                                       device=self.device)
+            self._emit("conv", name,
+                       ConvSpec("conv", strides, padding, groups, rp),
+                       packed, (k, b))
+        return cout
+
+    def deconv(self, name, *args, **kwargs):
+        raise _not_ported("deconv")
+
+    def fc(self, name, cin, cout, act="linear"):
+        k = self.rng.integers(0, 256, (cout, cin),
+                              dtype=np.int64).astype(np.uint8)
+        b = self._bias(cout)
+        packed = pack_gemm_weights(k, b, ACT_ZP, KERNEL_ZP, device=self.device)
+        self._emit("gemm", name,
+                   ConvSpec("gemm", (1, 1), ((0, 0), (0, 0)), 1,
+                            self._rparams(act)), packed, (k, b))
+        return cout
+
+    def maxpool(self, name, pool=(3, 3), strides=(2, 2),
+                padding=((1, 1), (1, 1))):
+        self._emit("maxpool", name, (pool, strides, padding))
+
+    def avgpool(self, name, pool, strides=None, padding=((0, 0), (0, 0))):
+        ph, pw = pool
+        qp = compute_avgpool_quant_params(
+            -ACT_ZP * ph * pw, 1.0 / (ph * pw), ACT_ZP,
+            input_zero_point=ACT_ZP)
+        self._emit("avgpool", name,
+                   (qp, pool, strides if strides else pool, padding))
+
+    def gap(self, name, spatial):
+        qp = compute_avgpool_quant_params(
+            -ACT_ZP * spatial * spatial, 1.0 / (spatial * spatial), ACT_ZP,
+            input_zero_point=ACT_ZP)
+        self._emit("gap", name, qp)
+
+    def save(self, slot):
+        self._emit("save", f"save_{slot}", slot)
+
+    def load(self, slot):
+        """Resume the flow from a saved slot."""
+        self._emit("load", f"load_{slot}", slot)
+
+    def add(self, name, slot):
+        self._emit("add", name,
+                   (slot, compute_add_quant_params(ACT_ZP, ACT_ZP, ACT_ZP,
+                                                   1.0, 1.0)))
+
+    def concat(self, name, slots):
+        """Concatenate saved slots (in order) along channels."""
+        self._emit("concat", name, tuple(slots))
+
+    def split(self, name, slot, channels):
+        """First `channels` channels -> slot; rest keeps flowing."""
+        self._emit("split", name, (slot, channels))
+
+    def shuffle(self, name, groups):
+        self._emit("shuffle", name, groups)
+
+    def softargmax(self, name, *args, **kwargs):
+        raise _not_ported("softargmax")
+
+    def finish(self, **meta):
+        spec = GraphSpec(layers=self.layers, raw_weights=self.raw, meta=meta)
+        return self.params, spec
+
+
+def graph_forward(params, spec: GraphSpec, x_u8):
+    """Execute a GraphSpec: uint8 NHWC in, the last layer's uint8 out."""
+    x = x_u8
+    env = {}
+    for (tag, _, payload), p in zip(spec.layers, params):
+        x = _graph_layer(tag, payload, p, x, env)
+    return x
+
+
+def _graph_layer(tag, payload, p, x, env):
+    if tag == "save":
+        env[payload] = x
+    elif tag == "load":
+        x = env[payload]
+    elif tag == "add":
+        slot, qp = payload
+        x = q8vadd_cuda(x, env[slot], qp)
+    elif tag == "concat":
+        x = torch.cat([env[s] for s in payload], dim=-1)
+    elif tag == "split":
+        # Both halves contiguous: the kernels take contiguous tensors.
+        slot, c = payload
+        env[slot] = x[..., :c].contiguous()
+        x = x[..., c:].contiguous()
+    elif tag == "maxpool":
+        pool, strides, padding = payload
+        x = u8maxpool2d(x, pool, strides, padding)
+    elif tag == "gap":
+        b, h, w, c = x.shape
+        x = q8gavgpool(x.reshape(b, h * w, c), payload, axis=1)
+    elif tag == "gemm":
+        x = q8gemm(x, p, payload.rparams)
+    elif tag == "conv":
+        x = q8conv2d(x, p, payload.rparams, payload.strides, payload.padding)
+    elif tag == "flatten":
+        x = x.reshape(x.shape[0], -1)
+    elif tag == "pad":
+        # Spatial constant pad with the tensor's zero point.
+        (pt, pb), (pl_, pr), zp = payload
+        x = F.pad(x, (0, 0, pl_, pr, pt, pb), value=zp)
+    elif tag in NOT_PORTED:
+        raise _not_ported(tag)
+    else:
+        raise ValueError(f"unknown tag {tag!r}")
+    return x
+
+
+class GraphModel(nn.Module):
+    """graph_forward as a module around packed params and a GraphSpec.
+
+    The packed records are dataclasses of tensors, not nn.Parameters: build
+    them on the device the model runs on."""
+
+    def __init__(self, params, spec: GraphSpec):
+        super().__init__()
+        self.params = params
+        self.spec = spec
+
+    def forward(self, x_u8: torch.Tensor) -> torch.Tensor:
+        return graph_forward(self.params, self.spec, x_u8)
+
+
+def _field(record, name):
+    return record[name] if isinstance(record, Mapping) else getattr(record, name)
+
+
+def packed_from_jax(name, record, kernel, *, gemm: bool, groups: int,
+                    device):
+    """One of the port's packed records from a JAX packed record.
+
+    `record` holds numpy `w` and `bias_folded` (as attributes or keys);
+    `kernel` is the layer's raw uint8 kernel [O, ...], which gives the
+    expected shapes: w [K, O] for a GEMM, [Kh, Kw, Icpg, O] for a conv."""
+    o = kernel.shape[0]
+    w = np.asarray(_field(record, "w"))
+    bias = np.asarray(_field(record, "bias_folded"))
+    want = ((int(np.prod(kernel.shape[1:])), o) if gemm
+            else tuple(kernel.shape[1:]) + (o,))
+    if w.shape != want or w.dtype != np.int8:
+        raise ValueError(f"{name}: w {w.shape} {w.dtype}, want {want} int8")
+    if bias.shape != (o,) or bias.dtype != np.int32:
+        raise ValueError(f"{name}: bias_folded {bias.shape} {bias.dtype}, "
+                         f"want ({o},) int32")
+    w_t = as_tensor(w, torch.int8, device).contiguous()
+    b_t = as_tensor(bias, torch.int32, device)
+    if gemm:
+        return PackedGemmWeights(
+            w=w_t, bias_folded=b_t, k=want[0], n=o, input_zero_point=ACT_ZP,
+            kernel_zero_point=KERNEL_ZP)
+    kh, kw, icpg = kernel.shape[1:]
+    return PackedConvWeights(
+        w=w_t, bias_folded=b_t, kernel_height=kh, kernel_width=kw,
+        group_input_channels=icpg, group_output_channels=o // groups,
+        groups=groups, input_zero_point=ACT_ZP, kernel_zero_point=KERNEL_ZP)
+
+
+def params_from_jax(arrays, spec: GraphSpec, *, device="cuda"):
+    """The port's packed records from the JAX package's packed graph params.
+
+    `arrays` is the JAX params list with numpy leaves (or None for
+    weightless layers); `spec` is the port's spec of the same graph."""
+    dev = resolve_device(device)
+    if len(arrays) != len(spec.layers):
+        raise ValueError(f"{len(arrays)} records for {len(spec.layers)} layers")
+    out = []
+    for (tag, name, payload), rec, raw in zip(spec.layers, arrays,
+                                              spec.raw_weights):
+        if raw is None:
+            if rec is not None:
+                raise ValueError(f"{name}: weightless layer got a record")
+            out.append(None)
+            continue
+        out.append(packed_from_jax(name, rec, raw[0], gemm=tag == "gemm",
+                                   groups=payload.groups, device=dev))
+    return out

@@ -7,15 +7,14 @@ numpy RNG calls in the same order, so one seed gives the same raw weights,
 layer specs and requant params as the JAX builder.  ReLU6 folds into the
 requantization clamp: output_max = zp + round(6 / scale).
 
-On GPU tensors every layer runs on a CUDA kernel: the 1x1 layers, the FC
-and the stem (through im2col) on q8gemm, the depthwise layers on q8dwconv,
-the residual adds on q8vadd and the pool on q8gavgpool.
+On GPU tensors every layer runs on a CUDA kernel: the 1x1 layers and the
+FC on q8gemm, the stem on q8stem, the depthwise layers on q8dwconv, the
+residual adds on q8vadd and the pool on q8gavgpool.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from collections.abc import Mapping
 from typing import Any
 
 import numpy as np
@@ -24,12 +23,13 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels.vpu_ops import q8vadd_cuda
-from ..nn.conv import PackedConvWeights, pack_conv_weights, q8conv2d
+from ..nn.conv import pack_conv_weights, q8conv2d
 from ..nn.gemm import q8gemm
-from ..nn.packing import PackedGemmWeights, as_tensor, pack_gemm_weights
+from ..nn.packing import pack_gemm_weights
 from ..nn.pool import q8gavgpool
 from ..nn.requant_dispatch import make_requant_params
 from ..quant.params import compute_add_quant_params, compute_avgpool_quant_params
+from .graph import packed_from_jax
 
 # Standard MobileNetV2 inverted-residual config: (expansion, channels,
 # repeats, first-stride) - QNNPACK's bench/convolution.cc:453-537 shapes.
@@ -223,10 +223,6 @@ class MobileNetV2(nn.Module):
         return mobilenet_v2_forward(self.params, self.spec, x_u8)
 
 
-def _field(record, name):
-    return record[name] if isinstance(record, Mapping) else getattr(record, name)
-
-
 def params_from_jax(arrays, spec: _ModelSpec, *, device="cuda"):
     """The port's packed records from the JAX package's packed params.
 
@@ -244,30 +240,7 @@ def params_from_jax(arrays, spec: _ModelSpec, *, device="cuda"):
                 raise ValueError(f"{name}: weightless layer got a record")
             out.append(None)
             continue
-        kernel = raw[0]
-        o = kernel.shape[0]
-        w = np.asarray(_field(rec, "w"))
-        bias = np.asarray(_field(rec, "bias_folded"))
-        if tag == "conv" and layer.kind == "gemm":
-            want = (int(np.prod(kernel.shape[1:])), o)
-        else:
-            want = tuple(kernel.shape[1:]) + (o,)
-        if w.shape != want or w.dtype != np.int8:
-            raise ValueError(f"{name}: w {w.shape} {w.dtype}, want {want} int8")
-        if bias.shape != (o,) or bias.dtype != np.int32:
-            raise ValueError(f"{name}: bias_folded {bias.shape} {bias.dtype}, "
-                             f"want ({o},) int32")
-        w_t = as_tensor(w, torch.int8, dev).contiguous()
-        b_t = as_tensor(bias, torch.int32, dev)
-        if tag == "conv" and layer.kind == "gemm":
-            out.append(PackedGemmWeights(
-                w=w_t, bias_folded=b_t, k=want[0], n=o,
-                input_zero_point=ACT_ZP, kernel_zero_point=KERNEL_ZP))
-        else:
-            kh, kw, icpg = kernel.shape[1:]
-            out.append(PackedConvWeights(
-                w=w_t, bias_folded=b_t, kernel_height=kh, kernel_width=kw,
-                group_input_channels=icpg,
-                group_output_channels=o // layer.groups, groups=layer.groups,
-                input_zero_point=ACT_ZP, kernel_zero_point=KERNEL_ZP))
+        out.append(packed_from_jax(
+            name, rec, raw[0], gemm=tag == "conv" and layer.kind == "gemm",
+            groups=layer.groups, device=dev))
     return out

@@ -6,10 +6,11 @@ sum (a - za)(w - zw), like QNNPACK's zero buffer (src/convolution.c:330-339).
 
   - Depthwise (groups == channels, one channel per group) runs the q8dwconv
     kernel, which reads the window straight from NHWC.
-  - Dense (groups == 1) is a zero-point-padded im2col, with K ordered
-    [kh, kw, cin] as the pack lays W out, followed by the q8gemm kernel:
-    the packed conv weights [Kh, Kw, Icpg, O] are the GEMM's [K, N] and the
-    folded bias is the same, since count = Kh*Kw*Icpg = K.
+  - Dense (groups == 1) routes by `dense_conv_route`: the stem class
+    (stride 2, C_in <= 4, kzp 128) to the q8stem kernel, every other dense
+    conv to the q8conv kernel, an implicit GEMM.  Both kernels' plain
+    version is the zero-point-padded `im2col` (K ordered [kh, kw, cin] as
+    the pack lays W out) times the packed weights viewed as [K, N].
 
 Kernel layout: O x Kh x Kw x Icpg (uint8), QNNPACK's NHWC operator
 convention.  Grouped conv with more than one channel per group, deconv and
@@ -24,8 +25,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..kernels.q8conv import q8conv_cuda
 from ..kernels.q8dwconv import q8dwconv_cuda
-from ..kernels.q8gemm import q8gemm_cuda
+from ..kernels.q8stem import MAX_INPUT_CHANNELS, q8stem_cuda
 from .dtypes import biased_zero_point, u8_to_biased_i8
 from .packing import PackedGemmWeights, as_tensor, fold_bias
 
@@ -116,6 +118,23 @@ def im2col(a_u8, packed: PackedConvWeights, strides=(1, 1),
         (b, ho, wo)
 
 
+def dense_conv_route(packed: PackedConvWeights, strides,
+                     dilation=(1, 1)) -> str:
+    """Kernel of a dense (groups = 1) conv: "q8stem" or "q8conv".
+
+    The JAX package's stem rule (qnnpack_tpu/nn/conv.py:
+    _route_stem_pallas) without its backend and tuning gates: stride
+    (2, 2), no dilation, a window of more than one tap, kzp == 128 and at
+    most 4 input channels go to the stem kernel."""
+    if (packed.groups == 1 and tuple(strides) == (2, 2)
+            and tuple(dilation) == (1, 1)
+            and packed.kernel_height * packed.kernel_width > 1
+            and packed.kzp_biased == 0
+            and packed.group_input_channels <= MAX_INPUT_CHANNELS):
+        return "q8stem"
+    return "q8conv"
+
+
 def q8conv2d(a_u8, packed: PackedConvWeights, rparams, strides=(1, 1),
              padding=((0, 0), (0, 0)), dilation=(1, 1)):
     """Quantized 2D convolution: uint8 NHWC -> uint8 NHWC."""
@@ -128,6 +147,6 @@ def q8conv2d(a_u8, packed: PackedConvWeights, rparams, strides=(1, 1),
         raise NotImplementedError(
             "grouped conv with more than one channel per group is not "
             "ported yet")
-    cols, (b, ho, wo) = im2col(a_u8, packed, strides, padding, dilation)
-    y = q8gemm_cuda(cols, packed.as_gemm(), rparams)
-    return y.reshape(b, ho, wo, -1)
+    if dense_conv_route(packed, strides, dilation) == "q8stem":
+        return q8stem_cuda(a_u8, packed, rparams, padding)
+    return q8conv_cuda(a_u8, packed, rparams, strides, padding, dilation)

@@ -1,13 +1,24 @@
-"""Quantized global average pooling.
+"""Quantized pooling: max and global average.
 
-QNNPACK's q8gavgpool contract; the reduction and its requantization run
-in the kernel of kernels/pool.py on GPU tensors and in its plain version
-on CPU tensors."""
+QNNPACK's u8maxpool and q8gavgpool contracts; each runs in its kernel of
+kernels/pool.py on GPU tensors and in the kernel's plain version on CPU
+tensors."""
 
 from __future__ import annotations
 
-from ..kernels.pool import q8gavgpool_cuda
+from ..kernels.pool import q8gavgpool_cuda, u8maxpool_cuda
 from ..quant.params import AvgPoolQuantParams
+
+
+def u8maxpool2d(x_u8, pool_size, strides=None, padding=((0, 0), (0, 0)),
+                dilation=(1, 1)):
+    """uint8 max pooling, NHWC (strides default to the pool size).
+
+    Padding with 0, the uint8 minimum, is max-neutral whenever a window
+    holds one real pixel, which the output-size formula guarantees; the
+    clamp is the full range 0..255."""
+    return u8maxpool_cuda(x_u8, pool_size, strides, padding,
+                          dilation, 0, 255)
 
 
 def q8gavgpool(x_u8, params: AvgPoolQuantParams, axis=1):

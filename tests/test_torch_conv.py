@@ -1,0 +1,206 @@
+"""Parity of the port's dense-conv kernels with the JAX package: the q8conv
+and q8stem kernels' plain versions against nn.conv.q8conv2d and against
+q8conv_pallas / q8stem_pallas in interpret mode, the dense-conv route
+(which kernel q8conv2d picks), and the stem kernel's contract.  Inputs come
+from a numpy seed; comparisons are exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from qnnpack_tpu.kernels.q8conv import q8conv_pallas
+from qnnpack_tpu.kernels.q8stem import q8stem_pallas
+from qnnpack_tpu.nn import conv as jconv
+from qnnpack_tpu.nn.requant_dispatch import make_requant_params as jmake
+from qnnpack_tpu.quant.params import \
+    compute_per_channel_fp32_params as jper_channel
+from qnnpack_tpu_torch import kernels as tkernels
+from qnnpack_tpu_torch.kernels.q8conv import q8conv_cuda, q8conv_plain
+from qnnpack_tpu_torch.kernels.q8stem import q8stem_cuda, q8stem_plain
+from qnnpack_tpu_torch.nn import conv as tconv
+from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params as tmake
+from qnnpack_tpu_torch.quant.params import \
+    compute_per_channel_fp32_params as tper_channel
+
+RNG = np.random.default_rng(0xC0A7)
+
+
+def u8(*shape):
+    return RNG.integers(0, 256, shape, dtype=np.int64).astype(np.uint8)
+
+
+def make_weights(o, kh, kw, icpg, izp, kzp):
+    kernel = u8(o, kh, kw, icpg)
+    bias = RNG.integers(-20000, 20000, o, dtype=np.int64).astype(np.int32)
+    return (jconv.pack_conv_weights(kernel, bias, izp, kzp),
+            tconv.pack_conv_weights(kernel, bias, izp, kzp))
+
+
+def requant_pair(scheme, n):
+    if scheme == "per_channel":
+        scales = RNG.uniform(1e-4, 2e-3, n)
+        return jper_channel(scales, 117), tper_channel(scales, 117)
+    return jmake(scheme, 0.0037, 117), tmake(scheme, 0.0037, 117)
+
+
+S2 = ((0, 1), (0, 1))
+P1 = ((1, 1), (1, 1))
+P0 = ((0, 0), (0, 0))
+
+CONV_CASES = {
+    # h, w, cin, cout, k, stride, padding, dilation
+    "3x3_s1_pad1": (9, 8, 16, 24, 3, 1, P1, 1),
+    "3x3_s2_pad01": (10, 9, 8, 16, 3, 2, S2, 1),
+    "1x1_s2": (9, 10, 16, 32, 1, 2, P0, 1),
+    "dilation2": (11, 9, 8, 12, 3, 1, ((2, 2), (2, 2)), 2),
+    "c3": (12, 11, 3, 8, 3, 2, S2, 1),
+    "c5_5x5": (9, 9, 5, 7, 5, 1, ((2, 2), (2, 2)), 1),
+}
+
+
+@pytest.mark.parametrize("scheme", ["q31", "fp32", "precise", "gemmlowp",
+                                    "per_channel"])
+@pytest.mark.parametrize("case", list(CONV_CASES))
+@pytest.mark.parametrize("izp,kzp", [(128, 128), (121, 103)])
+def test_q8conv_plain_matches_q8conv2d(case, scheme, izp, kzp):
+    h, w, cin, cout, k, s, pad, d = CONV_CASES[case]
+    jp, tp = make_weights(cout, k, k, cin, izp, kzp)
+    jr, tr = requant_pair(scheme, cout)
+    a = u8(2, h, w, cin)
+    kw = dict(strides=(s, s), padding=pad, dilation=(d, d))
+    want = np.asarray(jconv.q8conv2d(jnp.asarray(a), jp, jr, **kw))
+    got = q8conv_plain(torch.from_numpy(a), tp, tr, **kw)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["3x3_s1_pad1", "3x3_s2_pad01", "1x1_s2",
+                                  "dilation2", "c3"])
+@pytest.mark.parametrize("izp,kzp,scheme", [(128, 128, "fp32"),
+                                            (121, 103, "q31")])
+def test_q8conv_plain_matches_pallas(case, izp, kzp, scheme):
+    h, w, cin, cout, k, s, pad, d = CONV_CASES[case]
+    jp, tp = make_weights(cout, k, k, cin, izp, kzp)
+    jr, tr = requant_pair(scheme, cout)
+    a = u8(1, h, w, cin)
+    kw = dict(strides=(s, s), padding=pad, dilation=(d, d))
+    want = np.asarray(q8conv_pallas(jnp.asarray(a), jp, jr, tile_h=3,
+                                    interpret=True, **kw))
+    np.testing.assert_array_equal(
+        q8conv_plain(torch.from_numpy(a), tp, tr, **kw).numpy(), want)
+
+
+def test_q8conv_zero_point_padding_is_not_zero():
+    """izp != 128 with padding: a padded tap reads the input zero point,
+    which multiplies W' and enters the kzp row sum."""
+    jp, tp = make_weights(6, 3, 3, 4, 7, 250)
+    jr, tr = requant_pair("q31", 6)
+    a = u8(1, 5, 5, 4)
+    kw = dict(strides=(1, 1), padding=((2, 2), (2, 2)))
+    want = np.asarray(jconv.q8conv2d(jnp.asarray(a), jp, jr, **kw))
+    np.testing.assert_array_equal(
+        q8conv_plain(torch.from_numpy(a), tp, tr, **kw).numpy(), want)
+
+
+STEM_CASES = {
+    # h, w, c, o, k, padding
+    "7x7_pad23": (23, 22, 3, 8, 7, ((2, 3), (2, 3))),
+    "3x3_pad01": (17, 18, 3, 24, 3, S2),
+    "odd_c4": (15, 13, 4, 16, 3, P1),
+    "c1": (15, 15, 1, 8, 3, P1),
+}
+
+
+@pytest.mark.parametrize("scheme", ["q31", "fp32", "per_channel"])
+@pytest.mark.parametrize("case", list(STEM_CASES))
+def test_q8stem_plain_matches_pallas_and_q8conv2d(case, scheme):
+    h, w, c, o, k, pad = STEM_CASES[case]
+    jp, tp = make_weights(o, k, k, c, 121, 128)
+    jr, tr = requant_pair(scheme, o)
+    a = u8(2, h, w, c)
+    got = q8stem_plain(torch.from_numpy(a), tp, tr, pad).numpy()
+    want = np.asarray(q8stem_pallas(jnp.asarray(a), jp, jr, padding=pad,
+                                    interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(jconv.q8conv2d(
+        jnp.asarray(a), jp, jr, (2, 2), pad)))
+
+
+@pytest.mark.parametrize("groups,c,kzp,what", [
+    (1, 8, 128, "more than 4 input channels"),
+    (1, 3, 103, "kernel zero point"),
+    (2, 2, 128, "groups"),
+])
+def test_q8stem_contract_raises(groups, c, kzp, what):
+    kernel = u8(4, 3, 3, c)
+    packed = tconv.pack_conv_weights(kernel, None, 128, kzp, groups)
+    a = torch.from_numpy(u8(1, 9, 9, c * groups))
+    rp = tmake("fp32", 0.004, 128)
+    for fn in (q8stem_plain, q8stem_cuda):
+        with pytest.raises(ValueError):
+            fn(a, packed, rp, S2)
+
+
+ROUTES = {
+    # o, k, cin, kzp, strides, dilation -> kernel
+    "resnet_stem_7x7": ((64, 7, 3, 128, (2, 2), (1, 1)), "q8stem"),
+    "mobilenet_stem_3x3": ((32, 3, 3, 128, (2, 2), (1, 1)), "q8stem"),
+    "c4_stem": ((16, 3, 4, 128, (2, 2), (1, 1)), "q8stem"),
+    "resnet_body_3x3_s1": ((64, 3, 64, 128, (1, 1), (1, 1)), "q8conv"),
+    "resnet_body_3x3_s2": ((128, 3, 64, 128, (2, 2), (1, 1)), "q8conv"),
+    "projection_1x1_s2": ((128, 1, 64, 128, (2, 2), (1, 1)), "q8conv"),
+    "stem_kzp_not_128": ((32, 3, 3, 103, (2, 2), (1, 1)), "q8conv"),
+    "stem_c5": ((32, 3, 5, 128, (2, 2), (1, 1)), "q8conv"),
+    "stem_stride1": ((32, 3, 3, 128, (1, 1), (1, 1)), "q8conv"),
+    "stem_dilated": ((32, 3, 3, 128, (2, 2), (2, 2)), "q8conv"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_dense_conv_route(case):
+    (o, k, cin, kzp, strides, dilation), kernel = ROUTES[case]
+    packed = tconv.pack_conv_weights(u8(o, k, k, cin), None, 128, kzp)
+    assert tconv.dense_conv_route(packed, strides, dilation) == kernel
+
+
+@pytest.mark.parametrize("case", ["resnet_stem_7x7", "mobilenet_stem_3x3",
+                                  "resnet_body_3x3_s1", "projection_1x1_s2",
+                                  "stem_kzp_not_128"])
+def test_q8conv2d_dispatches_by_route(case, monkeypatch):
+    """q8conv2d sends a dense conv to the kernel its route names."""
+    (o, k, cin, kzp, strides, dilation), kernel = ROUTES[case]
+    packed = tconv.pack_conv_weights(u8(o, k, k, cin), None, 128, kzp)
+    called = []
+    for name in ("q8stem_cuda", "q8conv_cuda"):
+        real = getattr(tconv, name)
+        monkeypatch.setattr(
+            tconv, name,
+            lambda *a, real=real, name=name, **kw: called.append(name)
+            or real(*a, **kw))
+    pad = ((k // 2, k // 2), (k // 2, k // 2))
+    tconv.q8conv2d(torch.from_numpy(u8(1, 9, 9, cin)), packed,
+                   tmake("fp32", 0.004, 128), strides, pad, dilation)
+    assert called == [kernel + "_cuda"]
+
+
+def test_wrappers_on_cpu_run_plain_and_count_nothing():
+    _, tp = make_weights(8, 3, 3, 3, 128, 128)
+    _, tr = requant_pair("fp32", 8)
+    a = torch.from_numpy(u8(1, 11, 11, 3))
+    tkernels.reset_launch_counts()
+    assert torch.equal(q8conv_cuda(a, tp, tr, (2, 2), S2),
+                       q8conv_plain(a, tp, tr, (2, 2), S2))
+    assert torch.equal(q8stem_cuda(a, tp, tr, S2), q8stem_plain(a, tp, tr, S2))
+    assert q8conv_cuda.launches == 0 and q8stem_cuda.launches == 0
+
+
+def test_q8conv_rejects_channel_mismatch_and_groups():
+    _, tp = make_weights(8, 3, 3, 4, 128, 128)
+    _, tr = requant_pair("fp32", 8)
+    with pytest.raises(ValueError):
+        q8conv_cuda(torch.from_numpy(u8(1, 6, 6, 5)), tp, tr)
+    dw = tconv.pack_conv_weights(u8(4, 3, 3, 1), None, 128, 128, 4)
+    with pytest.raises(ValueError):
+        q8conv_cuda(torch.from_numpy(u8(1, 6, 6, 4)), dw, tr)

@@ -1,7 +1,8 @@
 """Parity of the port's convolution with the JAX package: conv weight
 packing, the depthwise branch (the q8dwconv kernel's plain version) against
 nn.conv.q8conv2d and q8dwconv_pallas in interpret mode, and the dense
-branch (zero-point-padded im2col + q8gemm) against nn.conv.q8conv2d.
+branch (the q8stem and q8conv kernels' plain versions, a zero-point-padded
+im2col times the packed weights) against nn.conv.q8conv2d.
 Inputs come from a numpy seed; comparisons are exact."""
 
 import numpy as np

@@ -127,7 +127,8 @@ def test_full_224_fp32_batch1_matches_jax():
     for tag, _, layer in js.layers:
         key = layer.kind if tag == "conv" else tag
         by_kind[key] = by_kind.get(key, 0) + 1
-    # 35 GEMM layers + the stem on q8gemm, 17 depthwise, 10 adds, 1 pool.
+    # 35 GEMM layers on q8gemm, the stem (q8stem), 17 depthwise, 10 adds,
+    # 1 pool.
     assert (by_kind["gemm"], by_kind["conv"], by_kind["dwconv"],
             by_kind["add"], by_kind["gap"]) == (35, 1, 17, 10, 1)
 

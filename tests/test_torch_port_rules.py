@@ -24,7 +24,9 @@ from qnnpack_tpu_torch import kernels as tkernels
 from qnnpack_tpu_torch.device import resolve_device
 from qnnpack_tpu_torch.entry import entry
 from qnnpack_tpu_torch.kernels import _build
+from qnnpack_tpu_torch.models import graph as tgraph
 from qnnpack_tpu_torch.models import mobilenet_v2 as tm
+from qnnpack_tpu_torch.models import zoo as tzoo
 from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
 from qnnpack_tpu_torch.quant import params as tparams
 from qnnpack_tpu_torch.serving import InferenceServer
@@ -66,6 +68,15 @@ def test_entry_defaults_to_gpu_and_raises_without_one(no_gpu):
         entry()
 
 
+def test_resnet18_entry_and_zoo_raise_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        entry(model="resnet18")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tzoo.resnet18(np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tgraph.GraphBuilder(np.random.default_rng(0))
+
+
 def test_builder_model_and_server_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tm.build_mobilenet_v2(np.random.default_rng(0), input_size=32)
@@ -84,8 +95,19 @@ def test_cpu_forward_launches_no_kernel():
     tkernels.reset_launch_counts()
     y = model(torch.zeros(2, 32, 32, 3, dtype=torch.uint8))
     assert tuple(y.shape) == (2, 10)
-    assert tkernels.launch_counts() == {"q8gemm": 0, "q8dwconv": 0,
-                                        "q8vadd": 0, "q8gavgpool": 0}
+    assert tkernels.launch_counts() == {
+        "q8gemm": 0, "q8dwconv": 0, "q8vadd": 0, "q8gavgpool": 0,
+        "q8conv": 0, "q8stem": 0, "u8maxpool": 0}
+
+
+def test_cpu_resnet18_forward_launches_no_kernel():
+    model = tgraph.GraphModel(*tzoo.resnet18(np.random.default_rng(1),
+                                             num_classes=10, device="cpu"))
+    tkernels.reset_launch_counts()
+    y = model(torch.zeros(2, 32, 32, 3, dtype=torch.uint8))
+    assert tuple(y.shape) == (2, 10)
+    assert set(tkernels.launch_counts()) == set(tkernels.KERNELS)
+    assert set(tkernels.launch_counts().values()) == {0}
 
 
 def test_check_cuda_refuses_cpu_tensors():
@@ -114,16 +136,22 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 
 def test_four_kernels_with_no_library_calls():
+    """The seven kernel sources (four of the first slice, three of the
+    second) and their shared headers call no library."""
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["q8dwconv.cu", "q8gavgpool.cu", "q8gemm.cu",
-                     "q8vadd.cu"]
+    assert names == ["q8conv.cu", "q8dwconv.cu", "q8gavgpool.cu",
+                     "q8gemm.cu", "q8stem.cu", "q8vadd.cu", "u8maxpool.cu"]
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == \
+        ["igemm_tile.cuh", "requant.cuh"]
     for p in _build.CSRC.iterdir():
         text = p.read_text()
         for lib in ("cublas", "cudnn", "cutlass", "_int_mm"):
             assert lib not in text.lower(), f"{p.name} mentions {lib}"
         includes = set(re.findall(r"#include [<\"]([^>\"]+)", text))
-        assert includes <= {"cuda_runtime.h", "cstdint", "requant.cuh"}, \
+        assert includes <= {"cuda_runtime.h", "cstdint", "requant.cuh",
+                            "igemm_tile.cuh"}, \
             f"{p.name} includes {includes}"
+    assert set(tkernels.KERNELS) == {n[:-3] for n in names}
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "-fmad=false" in _build.NVCC_FLAGS
 
