@@ -4,35 +4,47 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (built for sm_90a: an H100) and nvcc; exits non-zero
-without them.  Two main paths, each through qnnpack_tpu_torch.entry (seed
-0, fp32 requant, 224): MobileNetV2 1.0_224 and ResNet-18 through the graph
-runtime.  Phases, each of which raises on any failure:
+without them.  Three main paths, each through qnnpack_tpu_torch.entry (seed
+0, fp32 requant, 224): MobileNetV2 1.0_224, and ResNet-18 and ShuffleNet
+v1 (groups = 3) through the graph runtime.  Phases, each of which raises on
+any failure:
 
   1. print the card (nvidia-smi name and power limit) and versions, build
-     the seven CUDA kernels from qnnpack_tpu_torch/kernels/csrc/;
+     the eight CUDA kernels from qnnpack_tpu_torch/kernels/csrc/;
   2. hold every kernel against its plain PyTorch version, run on CPU copies
      of the same inputs, at the main paths' shapes plus kzp != 128, q31,
-     precise, gemmlowp, per-channel, ragged-channel and odd-size cases:
-     torch.equal, zero tolerance (the integer math is exact);
+     precise, gemmlowp, per-channel, ragged-channel, odd-size, grouped
+     (g = 2, 3, 4, 8) and izp != 128 cases: torch.equal, zero tolerance
+     (the integer math is exact);
   3. for each model, batch 1: the forward on the card must equal the plain
      CPU forward byte for byte;
   4. for each model, count kernel launches over one forward (counts set to
      0 just before it, read just after):
        MobileNetV2  q8gemm 35, q8stem 1, q8dwconv 17, q8vadd 10, q8gavgpool 1
        ResNet-18    q8stem 1, u8maxpool 1, q8conv 19, q8vadd 8,
-                    q8gavgpool 1, q8gemm 1;
+                    q8gavgpool 1, q8gemm 1
+       ShuffleNet   q8stem 1, u8maxpool 1, q8gemm 2, q8conv 31 (grouped),
+                    q8dwconv 16, q8avgpool 3, q8vadd 13, q8gavgpool 1;
   5. serve single-image requests through qnnpack_tpu_torch.serving
-     .InferenceServer (16 MobileNetV2, 8 ResNet-18); every answer must
-     equal its row of a direct batch forward;
+     .InferenceServer (16 MobileNetV2, 8 ResNet-18, 8 ShuffleNet); every
+     answer must equal its row of a direct batch forward;
   6. time with CUDA events (warm-up, median of repeats): each model's
      forward img/s at batch 1 and 128, and every kernel launch of each
      forward, on that layer's real input, beside its bound
      max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s), its plain version on
-     the card and a library yardstick (torch._int_mm on the im2col matrix,
-     product only, for q8gemm, q8conv and q8stem; none for the others:
-     F.max_pool2d, for one, has no uint8 kernel on the card); each
-     launch's output must equal its plain version's.  The MobileNetV2 stem's old route (im2col
-     + q8gemm) is timed beside q8stem at its shape.
+     the card and one library call that computes the same product or
+     reduction without requantization, on inputs already in its dtype and
+     layout (conversion not timed; TF32 off, so float32 sums of integers
+     below 2^24 are exact): torch._int_mm on the im2col matrix for q8gemm,
+     dense q8conv and q8stem; F.conv2d in float32 (channels-last, groups =
+     G) for grouped q8conv and q8dwconv; F.max_pool2d on float16 for
+     u8maxpool; F.avg_pool2d in float32 with divisor 1 for q8avgpool;
+     torch.sum to int32 for q8gavgpool; none for q8vadd (no one call
+     computes add_quantize's two rescales and clamp).  Each launch's output
+     must equal its plain version's.  The MobileNetV2 stem's old route
+     (im2col + q8gemm) is timed beside q8stem at its shape, and the
+     data movement outside the kernels (the channel shuffles and concats)
+     as a sum per forward.
 
 Prints the {"kernels": [...]} line (launches over one batch-1 forward of
 each path, times summed over one batch-128 forward of each path), the
@@ -56,11 +68,15 @@ INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense int8 tensor rate
 EXPECTED_LAUNCHES = {
     "mobilenet_v2": {"q8gemm": 35, "q8dwconv": 17, "q8vadd": 10,
                      "q8gavgpool": 1, "q8conv": 0, "q8stem": 1,
-                     "u8maxpool": 0},
+                     "u8maxpool": 0, "q8avgpool": 0},
     "resnet18": {"q8gemm": 1, "q8dwconv": 0, "q8vadd": 8, "q8gavgpool": 1,
-                 "q8conv": 19, "q8stem": 1, "u8maxpool": 1},
+                 "q8conv": 19, "q8stem": 1, "u8maxpool": 1, "q8avgpool": 0},
+    "shufflenet_v1_g3": {"q8gemm": 2, "q8dwconv": 16, "q8vadd": 13,
+                         "q8gavgpool": 1, "q8conv": 31, "q8stem": 1,
+                         "u8maxpool": 1, "q8avgpool": 3},
 }
-SERVED = {"mobilenet_v2": 16, "resnet18": 8}
+SERVED = {"mobilenet_v2": 16, "resnet18": 8, "shufflenet_v1_g3": 8}
+DATA_MOVEMENT = ("x8zip", "concat")  # timed rows that are not kernels
 SOURCES = {
     "q8gemm": ("qnnpack_tpu_torch/kernels/csrc/q8gemm.cu",
                "qnnpack_tpu/kernels/q8gemm_small.py:134"),
@@ -76,6 +92,8 @@ SOURCES = {
                "qnnpack_tpu/kernels/q8stem.py:109"),
     "u8maxpool": ("qnnpack_tpu_torch/kernels/csrc/u8maxpool.cu",
                   "qnnpack_tpu/kernels/pool.py:62"),
+    "q8avgpool": ("qnnpack_tpu_torch/kernels/csrc/q8avgpool.cu",
+                  "qnnpack_tpu/kernels/pool.py:117"),
 }
 
 
@@ -224,6 +242,59 @@ def check_kernels(torch, err):
             kernel, bias, izp, kzp, device=cuda), rp, **args)
         check("q8conv", label, got, want)
 
+    # grouped q8conv: (label, B, H, W, groups, Icpg, Ocpg, k, stride,
+    # padding, izp, kzp, scheme, rp kwargs); the ShuffleNet v1 g3 shapes,
+    # then g = 2, 4, 8 shapes of the same builder (qnnpack_tpu/models/
+    # zoo.py:247) and the edge cases.
+    grouped_cases = [
+        ("g3 st0u0_g2 28x28 20->72 (Icpg % 8 != 0)", 1, 28, 28, 3, 20, 72,
+         1, 1, p0, 128, 128, "fp32", {}),
+        ("g3 st0_g1 28x28 80->20", 1, 28, 28, 3, 80, 20, 1, 1, p0, 128, 128,
+         "fp32", {"qmin": 128}),
+        ("g3 st0_g2 28x28 20->80", 1, 28, 28, 3, 20, 80, 1, 1, p0, 128, 128,
+         "fp32", {}),
+        ("g3 st1u0_g1 28x28 80->40", 1, 28, 28, 3, 80, 40, 1, 1, p0, 128,
+         128, "fp32", {"qmin": 128}),
+        ("g3 st1_g2 14x14 40->160", 1, 14, 14, 3, 40, 160, 1, 1, p0, 128,
+         128, "fp32", {}),
+        ("g3 st2_g1 7x7 320->80", 1, 7, 7, 3, 320, 80, 1, 1, p0, 128, 128,
+         "fp32", {"qmin": 128}),
+        ("g3 st2u0_g2 b8 7x7 80->160", 8, 7, 7, 3, 80, 160, 1, 1, p0, 128,
+         128, "fp32", {}),
+        ("g2 st1_g1 14x14 200->50", 1, 14, 14, 2, 200, 50, 1, 1, p0, 128,
+         128, "fp32", {"qmin": 128}),
+        ("g4 st0_g1 28x28 68->17", 1, 28, 28, 4, 68, 17, 1, 1, p0, 128, 128,
+         "fp32", {"qmin": 128}),
+        ("g8 st2_g2 7x7 48->192", 2, 7, 7, 8, 48, 192, 1, 1, p0, 128, 128,
+         "fp32", {}),
+        ("g8 st0_g1 28x28 48->12", 1, 28, 28, 8, 48, 12, 1, 1, p0, 128, 128,
+         "fp32", {"qmin": 128}),
+        ("g3 kzp 103, q31, izp 121 Icpg 20", 2, 9, 11, 3, 20, 24, 1, 1, p0,
+         121, 103, "q31", {}),
+        ("g4 per-channel kzp 99 Icpg 12", 1, 10, 9, 4, 12, 33, 1, 1, p0,
+         121, 99, "pc", {}),
+        ("g2 precise kzp 90 Icpg 7", 3, 6, 7, 2, 7, 65, 1, 1, p0, 7, 90,
+         "precise", {}),
+        ("g8 gemmlowp kzp 200 Icpg 16", 1, 8, 8, 8, 16, 9, 1, 1, p0, 250,
+         200, "gemmlowp", {}),
+        ("g3 3x3 pad 1 izp 121 kzp 77 Icpg 5", 2, 11, 9, 3, 5, 7, 3, 1, p1,
+         121, 77, "q31", {}),
+        ("g2 3x3 s2 pad(0,1) izp 7 Icpg 40", 1, 13, 12, 2, 40, 70, 3, 2, s2,
+         7, 128, "fp32", {}),
+    ]
+    for (label, bsz, h, w, g, icpg, ocpg, k, s, pad, izp, kzp, scheme,
+         rkw) in grouped_cases:
+        kernel = u8(g * ocpg, k, k, icpg)
+        bias = rng.integers(-9000, 9000, g * ocpg).astype(np.int32)
+        rp = rparams(scheme, g * ocpg, rkw)
+        a = torch.from_numpy(u8(bsz, h, w, g * icpg))
+        args = dict(strides=(s, s), padding=pad)
+        want = K.q8conv_plain(
+            a, pack_conv_weights(kernel, bias, izp, kzp, g), rp, **args)
+        got = K.q8conv_cuda(a.to(cuda), pack_conv_weights(
+            kernel, bias, izp, kzp, g, device=cuda), rp, **args)
+        check("q8conv", label, got, want)
+
     # q8stem (stride 2, kzp 128): (label, B, H, W, C, O, k, padding, izp,
     # scheme, rp kwargs)
     stem_cases = [
@@ -295,6 +366,33 @@ def check_kernels(torch, err):
               K.u8maxpool_cuda(x.to(cuda), pool, strides, pad, dil, lo, hi),
               K.u8maxpool_plain(x, pool, strides, pad, dil, lo, hi))
 
+    # q8avgpool: (label, shape, pool, strides, padding, izp, scale,
+    # output zp, clamp); bias = -izp * pool size, as the graph sets it.
+    avgpool_cases = [
+        ("shufflenet st0u0 56x56x24 3x3 s2", (1, 56, 56, 24), (3, 3),
+         (2, 2), s2, 128, 1 / 9, 128, (0, 255)),
+        ("shufflenet st1u0 28x28x240 3x3 s2", (1, 28, 28, 240), (3, 3),
+         (2, 2), s2, 128, 1 / 9, 128, (0, 255)),
+        ("shufflenet st2u0 14x14x480 3x3 s2", (1, 14, 14, 480), (3, 3),
+         (2, 2), s2, 128, 1 / 9, 128, (0, 255)),
+        ("izp 7, 2x2 s2 unpadded 10x8x12", (2, 10, 8, 12), (2, 2), (2, 2),
+         p0, 7, 0.25, 100, (0, 255)),
+        ("izp 250, 3x3 s1 pad 1 9x7x16", (2, 9, 7, 16), (3, 3), (1, 1), p1,
+         250, 1 / 9, 3, (0, 255)),
+        ("odd 11x13, C=5, izp 121 s2 pad(0,1)", (3, 11, 13, 5), (3, 3),
+         (2, 2), s2, 121, 0.37, 117, (0, 255)),
+        ("clamp 20/250 13x11x17", (2, 13, 11, 17), (3, 3), (2, 2), s2, 128,
+         1 / 9, 128, (20, 250)),
+    ]
+    for (label, shape, pool, strides, pad, izp, scale, zp,
+         (lo, hi)) in avgpool_cases:
+        params = compute_avgpool_quant_params(
+            -izp * pool[0] * pool[1], scale, zp, lo, hi, input_zero_point=izp)
+        x = torch.from_numpy(u8(*shape))
+        check("q8avgpool", label,
+              K.q8avgpool_cuda(x.to(cuda), params, pool, strides, pad),
+              K.q8avgpool_plain(x, params, pool, strides, pad))
+
     for label, shape, params in [
             ("1x56x56x24 residual", (1, 56, 56, 24),
              compute_add_quant_params(128, 128, 128, 1.0, 1.0)),
@@ -320,8 +418,9 @@ def check_kernels(torch, err):
 # ------------------------------------------------ phase 6: main-path calls
 def traced_inputs(model, params, spec, x):
     """Run one forward layer by layer; yield (tag, name, layer, packed,
-    input, residual) for every layer, with the layer's real input (for an
-    add, `layer` is its AddQuantParams and `residual` the saved operand)."""
+    input, other) for every layer, with the layer's real input (for an add,
+    `layer` is its AddQuantParams and `other` the saved operand; for a
+    concat, `other` is the list of its parts)."""
     if model == "mobilenet_v2":
         from qnnpack_tpu_torch.models.mobilenet_v2 import apply_layer
         residual = None
@@ -334,6 +433,8 @@ def traced_inputs(model, params, spec, x):
     for (tag, name, payload), p in zip(spec.layers, params):
         if tag == "add":
             yield tag, name, payload[1], p, x, env[payload[0]]
+        elif tag == "concat":
+            yield tag, name, payload, p, x, [env[s] for s in payload]
         else:
             yield tag, name, payload, p, x, None
         x = _graph_layer(tag, payload, p, x, env)
@@ -341,27 +442,52 @@ def traced_inputs(model, params, spec, x):
 
 def int_mm_yardstick(torch, a, w):
     """torch._int_mm of biased uint8 A [M, K] by int8 W [K, N] (the
-    product only), K padded to a multiple of 8; None where cuBLASLt's int8
-    GEMM does not take the shape."""
+    product only), K and N padded with zeros to multiples of 8; None where
+    cuBLASLt's int8 GEMM does not take the shape (M <= 16)."""
     from qnnpack_tpu_torch.nn.dtypes import u8_to_biased_i8
+    F = torch.nn.functional
     m, k = a.shape
-    if m <= 16 or w.shape[1] % 8:
+    if m <= 16:
         return None
-    a8 = u8_to_biased_i8(a)
-    if k % 8:
-        a8 = torch.nn.functional.pad(a8, (0, 8 - k % 8))
-        w = torch.nn.functional.pad(w, (0, 0, 0, 8 - k % 8))
+    a8 = F.pad(u8_to_biased_i8(a), (0, -k % 8))
+    w = F.pad(w, (0, -w.shape[1] % 8, 0, -k % 8))
     # cuBLASLt's int8 GEMM takes the second operand column-major.
     w8 = w.t().contiguous().t()
     return lambda: torch._int_mm(a8, w8)
 
 
+def _nchw_view(torch, a, padding, value, dtype):
+    """NHWC uint8 `a` padded spatially with `value` and cast to `dtype`, as
+    an NCHW tensor in channels-last memory (built before timing)."""
+    (pt, pb), (pl_, pr) = padding
+    a = torch.nn.functional.pad(a, (0, 0, pl_, pr, pt, pb), value=value)
+    return a.to(dtype).permute(0, 3, 1, 2)
+
+
+def conv2d_yardstick(torch, a, p, strides, padding):
+    """F.conv2d in float32 (TF32 off), groups = p.groups, of the biased,
+    zero-point-padded input by the biased weights, channels-last: the
+    product only.  Every sum is an integer below 2^24, so float32 holds it
+    exactly."""
+    from qnnpack_tpu_torch.nn.dtypes import u8_to_biased_i8
+    xf = _nchw_view(torch, u8_to_biased_i8(a), padding, p.izp_biased,
+                    torch.float32)
+    wf = p.w.float().permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    return lambda: torch.nn.functional.conv2d(xf, wf, stride=tuple(strides),
+                                              groups=p.groups)
+
+
 def kernel_calls(torch, model, params, spec, x):
     """One record per kernel launch of the forward on `x`: its kernel, a
     label, closures running the kernel, the plain version and the library
-    yardstick on the card, and the bytes and ops of the work."""
+    yardstick on the card, and the bytes and ops of the work.  The channel
+    shuffles and concats get records too (kernel "x8zip" / "concat", with
+    `run` only): data movement outside the kernels."""
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.nn.conv import dense_conv_route, im2col
+    from qnnpack_tpu_torch.nn.elementwise import x8zip
+    F = torch.nn.functional
 
     for tag, name, layer, p, a, other in traced_inputs(model, params, spec,
                                                        x):
@@ -372,23 +498,47 @@ def kernel_calls(torch, model, params, spec, x):
                        plain=lambda a=a, b=other, l=layer: K.q8vadd_plain(
                            a, b, l),
                        library=None, bytes=3 * n, ops=4 * n)
+        elif tag == "shuffle":
+            yield dict(kernel="x8zip", label=f"{name} {tuple(a.shape)}",
+                       run=lambda a=a, g=layer: x8zip(a, g),
+                       bytes=2 * a.numel())
+        elif tag == "concat":
+            yield dict(kernel="concat",
+                       label=f"{name} {[t.shape[-1] for t in other]}",
+                       run=lambda parts=other: torch.cat(parts, dim=-1),
+                       bytes=2 * sum(t.numel() for t in other))
         elif tag == "gap":
             bsz, h, w, c = a.shape
             a3 = a.reshape(bsz, h * w, c)
             yield dict(kernel="q8gavgpool", label=f"{name} {tuple(a3.shape)}",
                        run=lambda a3=a3, q=layer: K.q8gavgpool_cuda(a3, q),
                        plain=lambda a3=a3, q=layer: K.q8gavgpool_plain(a3, q),
-                       library=None, bytes=a3.numel() + bsz * c,
-                       ops=a3.numel())
+                       library=lambda a3=a3: a3.sum(dim=1, dtype=torch.int32),
+                       bytes=a3.numel() + bsz * c, ops=a3.numel())
         elif tag == "maxpool":
             pool, strides, padding = layer
             out = K.u8maxpool_cuda(a, pool, strides, padding)
-            # No yardstick: F.max_pool2d has no uint8 kernel on the card.
+            xh = _nchw_view(torch, a, padding, 0, torch.float16)
             yield dict(kernel="u8maxpool",
                        label=f"{name} {tuple(a.shape)} {pool} s{strides[0]}",
                        run=lambda a=a, l=layer: K.u8maxpool_cuda(a, *l),
                        plain=lambda a=a, l=layer: K.u8maxpool_plain(a, *l),
-                       library=None, bytes=a.numel() + out.numel(),
+                       library=lambda xh=xh, l=layer: F.max_pool2d(
+                           xh, l[0], l[1]),
+                       bytes=a.numel() + out.numel(),
+                       ops=out.numel() * pool[0] * pool[1])
+        elif tag == "avgpool":
+            qp, pool, strides, padding = layer
+            out = K.q8avgpool_cuda(a, qp, pool, strides, padding)
+            xf = _nchw_view(torch, a, padding, qp.input_zero_point,
+                            torch.float32)
+            yield dict(kernel="q8avgpool",
+                       label=f"{name} {tuple(a.shape)} {pool} s{strides[0]}",
+                       run=lambda a=a, l=layer: K.q8avgpool_cuda(a, *l),
+                       plain=lambda a=a, l=layer: K.q8avgpool_plain(a, *l),
+                       library=lambda xf=xf, l=layer: F.avg_pool2d(
+                           xf, l[1], l[2], divisor_override=1),
+                       bytes=a.numel() + out.numel(),
                        ops=out.numel() * pool[0] * pool[1])
         elif tag == "gemm" or (tag == "conv" and layer.kind == "gemm"):
             a2 = a.reshape(-1, a.shape[-1])
@@ -401,7 +551,8 @@ def kernel_calls(torch, model, params, spec, x):
                        library=int_mm_yardstick(torch, a2, p.w),
                        bytes=m * k + k * p.n + 4 * p.n + m * p.n,
                        ops=2 * m * p.n * k)
-        elif tag == "conv" and p.groups > 1:  # depthwise
+        elif (tag == "conv" and p.groups > 1
+              and p.group_input_channels == p.group_output_channels == 1):
             c = a.shape[-1]
             kw_ = dict(strides=layer.strides, padding=layer.padding)
             out = K.q8dwconv_cuda(a, p, layer.rparams, **kw_)
@@ -413,14 +564,24 @@ def kernel_calls(torch, model, params, spec, x):
                     a, p, l.rparams, **kw_),
                 plain=lambda a=a, p=p, l=layer, kw_=kw_: K.q8dwconv_plain(
                     a, p, l.rparams, **kw_),
-                library=None,
+                library=conv2d_yardstick(torch, a, p, layer.strides,
+                                         layer.padding),
                 bytes=a.numel() + (taps + 4) * c + out.numel(),
                 ops=2 * taps * out.numel())
-        elif tag == "conv":  # dense
+        elif tag == "conv":  # dense or grouped
             kernel = dense_conv_route(p, layer.strides)
-            cols, _ = im2col(a, p, layer.strides, layer.padding)
-            m, k = cols.shape
+            k = p.kernel_height * p.kernel_width * p.group_input_channels
             o = p.w.shape[-1]
+            out = K.q8conv_cuda(a, p, layer.rparams, layer.strides,
+                                layer.padding)
+            m = out.numel() // o
+            if p.groups > 1:
+                library = conv2d_yardstick(torch, a, p, layer.strides,
+                                           layer.padding)
+            else:
+                cols, _ = im2col(a, p, layer.strides, layer.padding)
+                library = int_mm_yardstick(torch, cols, p.as_gemm().w)
+                del cols
             if kernel == "q8stem":
                 run = (lambda a=a, p=p, l=layer: K.q8stem_cuda(
                     a, p, l.rparams, l.padding))
@@ -434,22 +595,27 @@ def kernel_calls(torch, model, params, spec, x):
             yield dict(
                 kernel=kernel,
                 label=f"{name} {tuple(a.shape)} {p.kernel_height}x"
-                      f"{p.kernel_width} s{layer.strides[0]} ->{o}",
-                run=run, plain=plain,
-                library=int_mm_yardstick(torch, cols, p.as_gemm().w),
+                      f"{p.kernel_width} s{layer.strides[0]} g{p.groups} "
+                      f"->{o}",
+                run=run, plain=plain, library=library,
                 bytes=a.numel() + p.w.numel() + 4 * o + m * o,
                 ops=2 * m * o * k,
                 old_route=(lambda a=a, p=p, l=layer: K.q8gemm_cuda(
                     im2col(a, p, l.strides, l.padding)[0], p.as_gemm(),
                     l.rparams)) if kernel == "q8stem" else None)
-            del cols
 
 
 def time_main_path(torch, model, params, spec, x, err, plain_repeats):
     """Time every kernel launch of the forward on `x`, its plain version
-    and yardstick; each kernel's output must equal its plain version's."""
+    and yardstick; each kernel's output must equal its plain version's.
+    Data movement (shuffles, concats) is timed alone."""
     rows = []
     for call in kernel_calls(torch, model, params, spec, x):
+        if call["kernel"] in DATA_MOVEMENT:
+            rows.append(dict(kernel=call["kernel"], label=call["label"],
+                             bytes=call["bytes"],
+                             ms=time_ms(call["run"], torch)))
+            continue
         compare(torch, err, call["kernel"], call["label"], call["run"](),
                 call["plain"](), quiet=True)
         row = dict(kernel=call["kernel"], label=call["label"],
@@ -590,6 +756,9 @@ def main() -> int:
             "ms")
 
     log("[6] timings (CUDA events, median of repeats)")
+    # The float32 library convolutions must sum the integers exactly.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     forward = {}
     per_shape = {}
     with torch.inference_mode():
@@ -619,6 +788,14 @@ def main() -> int:
                         f"{s['shapes']:2d} launches: {s['ms']:.4f} ms, "
                         f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}), "
                         f"plain {s['plain_ms']:.4f} ms, library {lib} ms")
+                moved = [r for r in rows if r["kernel"] in DATA_MOVEMENT]
+                if moved:
+                    moved_ms = sum(r["ms"] for r in moved)
+                    fwd_ms = forward[model][f"b{batch}_ms"]
+                    forward[model][f"b{batch}_data_movement_ms"] = moved_ms
+                    log(f"    {model} b{batch:<3d} shuffles and concats "
+                        f"({len(moved)} copies): {moved_ms:.4f} ms, "
+                        f"{moved_ms / fwd_ms:.1%} of the forward")
                 for r in rows:
                     if "old_route_ms" in r:
                         log(f"    {model} b{batch} stem {r['label']}: "

@@ -5,7 +5,8 @@ The counterpart of the repository's __graft_entry__.entry(): the same seed
 from the builder's RNG after the weights, so the port's forward is
 comparable byte for byte with the JAX package's.  model="mobilenet_v2"
 (the default) is MobileNetV2 1.0_224; model="resnet18" is the zoo's
-ResNet-18 through the graph runtime, as bench_models.py builds it."""
+ResNet-18 and model="shufflenet_v1_g3" its ShuffleNet v1 with 3 groups,
+both through the graph runtime, as bench_models.py builds them."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from .models import zoo
 from .models.graph import graph_forward
 from .models.mobilenet_v2 import build_mobilenet_v2, mobilenet_v2_forward
 
-MODELS = ("mobilenet_v2", "resnet18")
+MODELS = ("mobilenet_v2", "resnet18", "shufflenet_v1_g3")
 
 
 def entry(device="cuda", model="mobilenet_v2"):
@@ -31,6 +32,10 @@ def entry(device="cuda", model="mobilenet_v2"):
         forward = mobilenet_v2_forward
     elif model == "resnet18":
         params, spec = zoo.resnet18(rng, requant="fp32", device=dev)
+        forward = graph_forward
+    elif model == "shufflenet_v1_g3":
+        params, spec = zoo.shufflenet_v1(rng, groups=3, requant="fp32",
+                                         device=dev)
         forward = graph_forward
     else:
         raise ValueError(f"unknown model {model!r}; expected one of {MODELS}")

@@ -6,8 +6,8 @@ plain PyTorch version (`*_plain`, which the wrapper runs for CPU tensors).
 The CUDA sources are in csrc/; _build.py compiles them at first launch.
 """
 
-from .pool import (q8gavgpool_cuda, q8gavgpool_plain, u8maxpool_cuda,
-                   u8maxpool_plain)
+from .pool import (q8avgpool_cuda, q8avgpool_plain, q8gavgpool_cuda,
+                   q8gavgpool_plain, u8maxpool_cuda, u8maxpool_plain)
 from .q8conv import q8conv_cuda, q8conv_plain
 from .q8dwconv import q8dwconv_cuda, q8dwconv_plain
 from .q8gemm import q8gemm_cuda, q8gemm_plain
@@ -22,6 +22,7 @@ KERNELS = {
     "q8conv": q8conv_cuda,
     "q8stem": q8stem_cuda,
     "u8maxpool": u8maxpool_cuda,
+    "q8avgpool": q8avgpool_cuda,
 }
 
 

@@ -41,11 +41,12 @@ SIGNATURES = {
                     + [_I] * 6 + [_F, _P],
     "qnn_q8vadd": [_I, _P, _P, _P, _I64] + [_I] * 7 + [_P],
     "qnn_q8gavgpool": [_I, _P, _P] + [_I] * 9 + [_P],
-    "qnn_q8conv": [_I, _P, _P, _P, _P, _P] + [_I] * 17
+    "qnn_q8conv": [_I, _P, _P, _P, _P, _P] + [_I] * 18
                   + [_I] * 6 + [_F, _P],
     "qnn_q8stem": [_I, _P, _P, _P, _P, _P] + [_I] * 12
                   + [_I] * 6 + [_F, _P],
     "qnn_u8maxpool": [_I, _P, _P] + [_I] * 16 + [_P],
+    "qnn_q8avgpool": [_I, _P, _P] + [_I] * 19 + [_P],
 }
 
 _lock = threading.Lock()

@@ -70,10 +70,14 @@ __device__ __forceinline__ void tile_step(const int8_t (*as)[kTileRow],
   }
 }
 
-// acc + bias' - kzp' * row_sum, requantized, into out [m, n] row-major.
+// acc + bias' - kzp' * row_sum, requantized.  Tile column gn < n lands in
+// output column col_base + gn of rows out_stride bytes apart, and reads the
+// bias and the channel scale of that column: a GEMM passes (n, 0), group g
+// of a grouped conv (groups * n, g * n).
 __device__ __forceinline__ void tile_store(const TileAcc& t, int64_t m0,
-                                           int n0, int64_t m, int n, int tx,
-                                           int ty,
+                                           int n0, int64_t m, int n,
+                                           int out_stride, int col_base,
+                                           int tx, int ty,
                                            const int32_t* __restrict__ bias,
                                            const float* __restrict__ scales,
                                            int kzp_biased, const Requant& rp,
@@ -88,11 +92,12 @@ __device__ __forceinline__ void tile_store(const TileAcc& t, int64_t m0,
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx + 16 * j;
       if (gn >= n) continue;
+      const int col = col_base + gn;
       const int32_t v = static_cast<int32_t>(
           static_cast<uint32_t>(t.acc[i][j]) +
-          static_cast<uint32_t>(bias[gn]) - zp_term);
-      const float cs = scales != nullptr ? scales[gn] : rp.scale;
-      out[gm * n + gn] = requantize(v, rp, cs);
+          static_cast<uint32_t>(bias[col]) - zp_term);
+      const float cs = scales != nullptr ? scales[col] : rp.scale;
+      out[gm * out_stride + col] = requantize(v, rp, cs);
     }
   }
 }

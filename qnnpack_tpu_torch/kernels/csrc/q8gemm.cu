@@ -83,7 +83,8 @@ __global__ void __launch_bounds__(kTileThreads)
     qnn::tile_step(as, ws, tx, ty, kzp_biased != 0, t);
     __syncthreads();
   }
-  qnn::tile_store(t, m0, n0, m, n, tx, ty, bias, scales, kzp_biased, rp, out);
+  qnn::tile_store(t, m0, n0, m, n, n, 0, tx, ty, bias, scales, kzp_biased, rp,
+                  out);
 }
 
 }  // namespace

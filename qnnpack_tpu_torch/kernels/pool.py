@@ -1,8 +1,9 @@
-"""Pooling kernels and their plain versions: u8maxpool and q8gavgpool.
+"""Pooling kernels and their plain versions: u8maxpool, q8avgpool and
+q8gavgpool.
 
-Ports of qnnpack_tpu/kernels/pool.py:u8maxpool_pallas and
+Ports of qnnpack_tpu/kernels/pool.py:u8maxpool_pallas, q8avgpool_pallas and
 q8gavgpool_pallas; the CUDA sources, with their design and what bounds
-them, are csrc/u8maxpool.cu and csrc/q8gavgpool.cu.
+them, are csrc/u8maxpool.cu, csrc/q8avgpool.cu and csrc/q8gavgpool.cu.
 
 Each `*_cuda` wrapper takes the plain version for CPU tensors only.  For
 CUDA tensors it launches the kernel or raises; there is no fallback.
@@ -69,10 +70,66 @@ def u8maxpool_cuda(x_u8, pool_size, strides=None, padding=((0, 0), (0, 0)),
 u8maxpool_cuda.launches = 0
 
 
+def _quantize_wrapped(acc, params: AvgPoolQuantParams):
+    """avgpool_quantize of an int64 sum wrapped to int32, as the kernels'
+    int32 accumulators wrap."""
+    return avgpool_quantize(((acc + 2**31) & 0xFFFFFFFF) - 2**31, params)
+
+
+def q8avgpool_plain(x_u8, params: AvgPoolQuantParams, pool_size,
+                    strides=None, padding=((0, 0), (0, 0))):
+    """Plain version of the kernel: uint8 NHWC -> uint8 NHWC.
+
+    The window sum over the input padded with params.input_zero_point (not
+    0: a padded tap cancels against params.bias = -izp*ph*pw), plus
+    params.bias, then avgpool_quantize."""
+    ph, pw = pool_size
+    sh, sw = strides if strides is not None else pool_size
+    _, h, w, _ = x_u8.shape
+    ho, wo = _build.out_dims(h, w, ph, pw, (sh, sw), padding)
+    (pt, pb), (pl_, pr) = padding
+    x = F.pad(x_u8, (0, 0, pl_, pr, pt, pb),
+              value=params.input_zero_point).to(torch.int64)
+    acc = params.bias
+    for ky in range(ph):
+        for kx in range(pw):
+            acc = acc + x[:, ky:ky + (ho - 1) * sh + 1:sh,
+                          kx:kx + (wo - 1) * sw + 1:sw, :]
+    return _quantize_wrapped(acc, params)
+
+
+def q8avgpool_cuda(x_u8, params: AvgPoolQuantParams, pool_size,
+                   strides=None, padding=((0, 0), (0, 0))):
+    """Quantized average pooling uint8 NHWC -> uint8 NHWC; strides default
+    to the pool size, padded taps read params.input_zero_point."""
+    if x_u8.dim() != 4:
+        raise ValueError(f"expected NHWC, got {tuple(x_u8.shape)}")
+    if x_u8.device.type == "cpu":
+        return q8avgpool_plain(x_u8, params, pool_size, strides, padding)
+    _build.check_cuda("x", x_u8, torch.uint8, 4)
+    ph, pw = pool_size
+    sh, sw = strides if strides is not None else pool_size
+    b, h, w, c = x_u8.shape
+    ho, wo = _build.out_dims(h, w, ph, pw, (sh, sw), padding)
+    out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=x_u8.device)
+    _build.launch(
+        "qnn_q8avgpool", x_u8.device.index or 0, x_u8.data_ptr(),
+        out.data_ptr(), b, h, w, c, ho, wo, ph, pw, sh, sw, padding[0][0],
+        padding[1][0], params.input_zero_point, params.bias,
+        params.multiplier, params.shift, params.output_zero_point,
+        params.output_min_less_zero_point,
+        params.output_max_less_zero_point, _build.stream_of(x_u8))
+    q8avgpool_cuda.launches += 1
+    return out
+
+
+q8avgpool_cuda.launches = 0
+
+
 def q8gavgpool_plain(x_u8, params: AvgPoolQuantParams):
     """Plain version of the kernel: [B, S, C] -> [B, C]."""
-    acc = x_u8.to(torch.int64).sum(dim=1) + params.bias
-    return avgpool_quantize(((acc + 2**31) & 0xFFFFFFFF) - 2**31, params)
+    return _quantize_wrapped(x_u8.to(torch.int64).sum(dim=1) + params.bias,
+                             params)
 
 
 def q8gavgpool_cuda(x_u8, params: AvgPoolQuantParams):

@@ -1,7 +1,10 @@
-"""q8conv: the dense-conv kernel and its plain PyTorch version.
+"""q8conv: the dense and grouped conv kernel and its plain PyTorch version.
 
-Port of qnnpack_tpu/kernels/q8conv.py:q8conv_pallas; the CUDA source, with
-its design and what bounds it, is csrc/q8conv.cu.
+Port of qnnpack_tpu/kernels/q8conv.py:q8conv_pallas, extended to the
+grouped convs (more than one channel per group) that the JAX package runs
+in XLA (qnnpack_tpu/nn/conv.py:q8conv2d_acc); the CUDA source, with its
+design and what bounds it, is csrc/q8conv.cu.  Depthwise convs belong to
+q8dwconv.
 
 `q8conv_cuda` takes the plain version for CPU tensors only.  For CUDA
 tensors it launches the kernel or raises; there is no fallback.
@@ -11,41 +14,56 @@ from __future__ import annotations
 
 import torch
 
+from ..nn.requant_dispatch import apply_requant
 from . import _build
-from .q8gemm import q8gemm_plain
+from .q8gemm import gemm_acc_plain
 
 
-def check_dense(a_u8, packed) -> None:
-    """Raise unless `packed` is a dense (groups = 1) conv over `a_u8`."""
-    if packed.groups != 1:
-        raise ValueError(f"dense conv requires groups == 1, got "
-                         f"{packed.groups}")
-    if a_u8.dim() != 4 or a_u8.shape[3] != packed.group_input_channels:
+def check_conv(a_u8, packed) -> None:
+    """Raise unless `packed` is a dense or grouped (not depthwise) conv over
+    `a_u8`."""
+    if (packed.groups > 1 and packed.group_input_channels == 1
+            and packed.group_output_channels == 1):
+        raise ValueError("a depthwise conv belongs to q8dwconv, not q8conv")
+    channels = packed.groups * packed.group_input_channels
+    if a_u8.dim() != 4 or a_u8.shape[3] != channels:
         raise ValueError(f"input {tuple(a_u8.shape)} does not match "
-                         f"{packed.group_input_channels} channels")
+                         f"{channels} channels")
 
 
 def q8conv_plain(a_u8, packed, rparams, strides=(1, 1),
                  padding=((0, 0), (0, 0)), dilation=(1, 1)):
     """Plain version of the kernel: uint8 NHWC -> uint8 NHWC.
 
-    The zero-point-padded im2col [B*Ho*Wo, Kh*Kw*C] times the packed
-    weights viewed as [K, N]: exact, since the folded bias counts
-    Kh*Kw*C = K taps of za'*zw' and the im2col row sum is the window sum of
-    the padded input."""
+    For each group g, the zero-point-padded im2col of its input channels
+    [B*Ho*Wo, Kh*Kw*Icpg] times its weight columns g*Ocpg.. viewed as
+    [K, Ocpg]: exact, since the folded bias counts Kh*Kw*Icpg = K taps of
+    za'*zw' and the im2col row sum is the group's window sum of the padded
+    input.  The groups' accumulators are concatenated along channels and
+    requantized once."""
     from ..nn.conv import im2col  # nn.conv imports this module
-    check_dense(a_u8, packed)
-    cols, (b, ho, wo) = im2col(a_u8, packed, strides, padding, dilation)
-    return q8gemm_plain(cols, packed.as_gemm(), rparams).reshape(b, ho, wo,
-                                                                 -1)
+    check_conv(a_u8, packed)
+    icpg, ocpg = packed.group_input_channels, packed.group_output_channels
+    k = packed.kernel_height * packed.kernel_width * icpg
+    accs = []
+    for g in range(packed.groups):
+        cols, (b, ho, wo) = im2col(a_u8[..., g * icpg:(g + 1) * icpg],
+                                   packed, strides, padding, dilation)
+        cout = slice(g * ocpg, (g + 1) * ocpg)
+        accs.append(gemm_acc_plain(cols, packed.w[..., cout].reshape(k, ocpg),
+                                   packed.bias_folded[cout],
+                                   packed.kzp_biased))
+    acc = torch.cat(accs, dim=-1)
+    return apply_requant(acc, rparams).reshape(b, ho, wo, -1)
 
 
 def q8conv_cuda(a_u8, packed, rparams, strides=(1, 1),
                 padding=((0, 0), (0, 0)), dilation=(1, 1)):
-    """Quantized dense conv: uint8 NHWC -> uint8 NHWC (any requant scheme).
+    """Quantized dense or grouped conv: uint8 NHWC -> uint8 NHWC (any
+    requant scheme).
 
-    `packed` is an nn.conv.PackedConvWeights with groups == 1."""
-    check_dense(a_u8, packed)
+    `packed` is an nn.conv.PackedConvWeights that is not depthwise."""
+    check_conv(a_u8, packed)
     if a_u8.device.type == "cpu":
         return q8conv_plain(a_u8, packed, rparams, strides, padding,
                             dilation)
@@ -65,8 +83,8 @@ def q8conv_cuda(a_u8, packed, rparams, strides=(1, 1),
         "qnn_q8conv", a_u8.device.index or 0, a_u8.data_ptr(),
         packed.w.data_ptr(), packed.bias_folded.data_ptr(),
         None if scales is None else scales.data_ptr(), out.data_ptr(),
-        b, h, w, c, ho, wo, o, kh, kw, strides[0], strides[1],
-        padding[0][0], padding[1][0], dilation[0], dilation[1],
+        b, h, w, c, ho, wo, o, packed.groups, kh, kw, strides[0],
+        strides[1], padding[0][0], padding[1][0], dilation[0], dilation[1],
         packed.izp_biased, packed.kzp_biased, *rq, _build.stream_of(a_u8))
     q8conv_cuda.launches += 1
     return out

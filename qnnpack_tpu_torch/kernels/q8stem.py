@@ -16,14 +16,17 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .q8conv import check_dense, q8conv_plain
+from .q8conv import check_conv, q8conv_plain
 
 MAX_INPUT_CHANNELS = 4
 
 
 def check_stem(a_u8, packed) -> None:
     """Raise unless (a_u8, packed) is inside the stem kernel's contract."""
-    check_dense(a_u8, packed)
+    check_conv(a_u8, packed)
+    if packed.groups != 1:
+        raise ValueError(f"stem kernel requires groups == 1, got "
+                         f"{packed.groups}")
     if packed.kzp_biased != 0:
         raise ValueError(f"stem kernel requires kernel_zero_point 128, got "
                          f"{packed.kernel_zero_point}")

@@ -9,5 +9,6 @@ from .mobilenet_v2 import (  # noqa: F401
     mobilenet_v2_forward,
 )
 from .zoo import (  # noqa: F401
-    mobilenet_v1, resnet18, resnet50, squeezenet_v10, squeezenet_v11, vgg16,
+    SHUFFLENET_V2_CHANNELS, mobilenet_v1, resnet18, resnet50, shufflenet_v1,
+    shufflenet_v2, squeezenet_v10, squeezenet_v11, vgg16,
 )

@@ -5,18 +5,22 @@ that the model zoo builds against.  The builder makes the same numpy RNG
 calls in the same order as the JAX builder, so one seed gives the same raw
 weights, layer specs and requant params.  Tags run here:
 
-    conv     dense or depthwise conv (nn.conv.q8conv2d: q8stem, q8conv or
-             q8dwconv kernel)
+    conv     dense, grouped or depthwise conv (nn.conv.q8conv2d: q8stem,
+             q8conv or q8dwconv kernel)
     gemm     1x1-conv / fully-connected (nn.gemm.q8gemm: q8gemm kernel)
     maxpool  (nn.pool.u8maxpool2d: u8maxpool kernel)
+    avgpool  (nn.pool.q8avgpool2d: q8avgpool kernel)
     gap      (nn.pool.q8gavgpool: q8gavgpool kernel)
     add      residual add against a saved slot (q8vadd kernel)
+    shuffle  channel shuffle (nn.elementwise.x8zip, a PyTorch copy)
     save / load / concat / split / flatten / pad   data movement
 
+`graph_forward` keeps the JAX executor's one peephole: a concat of g
+equal-width slots followed by shuffle(g) is one interleaving copy.
+
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-the tags avgpool, deconv, shuffle, lut and softargmax, and the builder
-methods deconv and softargmax.  The JAX executor's concat + shuffle
-peephole waits with shuffle.
+the tags deconv, lut and softargmax, and the builder methods deconv and
+softargmax.
 
 All activations share one synthetic quantization (scale 0.1, zp 128), so
 adds and concats need no rescale.
@@ -36,9 +40,10 @@ from torch import nn
 from ..device import resolve_device
 from ..kernels.vpu_ops import q8vadd_cuda
 from ..nn.conv import PackedConvWeights, pack_conv_weights, q8conv2d
+from ..nn.elementwise import x8zip
 from ..nn.gemm import q8gemm
 from ..nn.packing import PackedGemmWeights, as_tensor, pack_gemm_weights
-from ..nn.pool import q8gavgpool, u8maxpool2d
+from ..nn.pool import q8avgpool2d, q8gavgpool, u8maxpool2d
 from ..nn.requant_dispatch import make_requant_params
 from ..quant.params import compute_add_quant_params, compute_avgpool_quant_params
 
@@ -49,10 +54,7 @@ KERNEL_ZP = 128
 
 # What each unported tag waits for, by ROADMAP item.
 NOT_PORTED = {
-    "avgpool": "q8avgpool2d and its kernel (ROADMAP Queue 1 item 8, "
-               "Queue 2 item 9)",
     "deconv": "q8deconv2d (ROADMAP Queue 1 item 7)",
-    "shuffle": "x8zip (ROADMAP Queue 1 item 8)",
     "lut": "x8lut (ROADMAP Queue 1 item 8)",
     "softargmax": "u8softargmax (ROADMAP Queue 1 item 8, Queue 2 item 11)",
 }
@@ -199,11 +201,28 @@ class GraphBuilder:
 
 
 def graph_forward(params, spec: GraphSpec, x_u8):
-    """Execute a GraphSpec: uint8 NHWC in, the last layer's uint8 out."""
+    """Execute a GraphSpec: uint8 NHWC in, the last layer's uint8 out.
+
+    A `concat` of g equal-width slots followed by `shuffle(g)` is a channel
+    interleave of the slots, run as one stack + reshape: the same bytes as
+    the pair (the JAX executor's peephole; ShuffleNet v2's unit tail)."""
     x = x_u8
     env = {}
-    for (tag, _, payload), p in zip(spec.layers, params):
-        x = _graph_layer(tag, payload, p, x, env)
+    layers = spec.layers
+    i = 0
+    while i < len(layers):
+        tag, _, payload = layers[i]
+        if (tag == "concat" and i + 1 < len(layers)
+                and layers[i + 1][0] == "shuffle"
+                and layers[i + 1][2] == len(payload)
+                and len({env[s].shape[-1] for s in payload}) == 1):
+            parts = [env[s] for s in payload]
+            x = torch.stack(parts, dim=-1).reshape(
+                *parts[0].shape[:-1], len(parts) * parts[0].shape[-1])
+            i += 2
+            continue
+        x = _graph_layer(tag, payload, params[i], x, env)
+        i += 1
     return x
 
 
@@ -222,9 +241,14 @@ def _graph_layer(tag, payload, p, x, env):
         slot, c = payload
         env[slot] = x[..., :c].contiguous()
         x = x[..., c:].contiguous()
+    elif tag == "shuffle":
+        x = x8zip(x, payload)
     elif tag == "maxpool":
         pool, strides, padding = payload
         x = u8maxpool2d(x, pool, strides, padding)
+    elif tag == "avgpool":
+        qp, pool, strides, padding = payload
+        x = q8avgpool2d(x, qp, pool, strides, padding)
     elif tag == "gap":
         b, h, w, c = x.shape
         x = q8gavgpool(x.reshape(b, h * w, c), payload, axis=1)

@@ -3,11 +3,12 @@ ported kernel.
 
 A port of qnnpack_tpu/models/zoo.py (QNNPACK's bench/convolution.cc model
 table): ResNet-18 (:642) / ResNet-50 (:668), SqueezeNet 1.0 (:539) / 1.1
-(:591), MobileNet v1 (:428) and VGG-16 (:720).  Each builder makes the same
-numpy RNG calls in the same order as its JAX builder.  All return (params,
-spec) with params on `device`; run with graph.graph_forward(params, spec,
-x) or graph.GraphModel.  The ShuffleNets wait for grouped conv, x8zip and
-q8avgpool (ROADMAP).
+(:591), MobileNet v1 (:428), ShuffleNet v1 g1-g8 (:108-216), ShuffleNet v2
+x0.5-x2.0 (:241-397) and VGG-16 (:720).  Each builder makes the same numpy
+RNG calls in the same order as its JAX builder.  All return (params, spec)
+with params on `device`; run with graph.graph_forward(params, spec, x) or
+graph.GraphModel.  Of the JAX zoo only ENet (models/enet.py) waits: it
+needs deconv (ROADMAP).
 """
 
 from __future__ import annotations
@@ -174,6 +175,122 @@ def resnet50(rng: np.random.Generator, *, num_classes: int = 1000,
     g.gap("gap", 7)
     g.fc("fc", c, num_classes)
     return g.finish(name="resnet50", input_size=224)
+
+
+SHUFFLENET_V2_CHANNELS = {
+    0.5: (24, 48, 96, 192, 1024),
+    1.0: (24, 116, 232, 464, 1024),
+    1.5: (24, 176, 352, 704, 1024),
+    2.0: (24, 244, 488, 976, 2048),
+}
+
+
+def shufflenet_v2(rng: np.random.Generator, *, width: float = 1.0,
+                  num_classes: int = 1000, requant: str = "fp32",
+                  device="cuda"):
+    """ShuffleNet v2 (bench/convolution.cc:241-397): channel split,
+    dw-separable right branch, concat, shuffle."""
+    g = GraphBuilder(rng, requant, device=device)
+    stem, c2, c3, c4, head = SHUFFLENET_V2_CHANNELS[width]
+    c = g.conv("stem", 3, stem, strides=(2, 2), padding=((0, 1), (0, 1)),
+               act="relu")
+    g.maxpool("pool1", (3, 3), (2, 2), ((0, 1), (0, 1)))
+
+    def unit_s1(name, c):
+        half = c // 2
+        g.split(f"{name}_split", f"{name}_left", half)
+        g.conv(f"{name}_pw1", half, half, kernel=(1, 1),
+               padding=((0, 0), (0, 0)), act="relu")
+        g.conv(f"{name}_dw", half, half, groups=half, act="linear")
+        g.conv(f"{name}_pw2", half, half, kernel=(1, 1),
+               padding=((0, 0), (0, 0)), act="relu")
+        g.save(f"{name}_right")
+        g.concat(f"{name}_cat", [f"{name}_left", f"{name}_right"])
+        g.shuffle(f"{name}_shuf", 2)
+        return c
+
+    def unit_s2(name, cin, cout):
+        half = cout // 2
+        g.save(f"{name}_in")
+        # left branch: dw s2 + pw
+        g.conv(f"{name}_ldw", cin, cin, strides=(2, 2),
+               padding=((0, 1), (0, 1)), groups=cin, act="linear")
+        g.conv(f"{name}_lpw", cin, half, kernel=(1, 1),
+               padding=((0, 0), (0, 0)), act="relu")
+        g.save(f"{name}_left")
+        g.load(f"{name}_in")
+        # right branch: pw + dw s2 + pw
+        g.conv(f"{name}_rpw1", cin, half, kernel=(1, 1),
+               padding=((0, 0), (0, 0)), act="relu")
+        g.conv(f"{name}_rdw", half, half, strides=(2, 2),
+               padding=((0, 1), (0, 1)), groups=half, act="linear")
+        g.conv(f"{name}_rpw2", half, half, kernel=(1, 1),
+               padding=((0, 0), (0, 0)), act="relu")
+        g.save(f"{name}_right")
+        g.concat(f"{name}_cat", [f"{name}_left", f"{name}_right"])
+        g.shuffle(f"{name}_shuf", 2)
+        return cout
+
+    for stage, (cout, repeats) in enumerate([(c2, 4), (c3, 8), (c4, 4)]):
+        c = unit_s2(f"st{stage}u0", c, cout)
+        for i in range(1, repeats):
+            c = unit_s1(f"st{stage}u{i}", c)
+    c = g.conv("head", c, head, kernel=(1, 1), padding=((0, 0), (0, 0)),
+               act="relu")
+    g.gap("gap", 7)
+    g.fc("fc", c, num_classes)
+    return g.finish(name=f"shufflenet_v2_x{width}", input_size=224)
+
+
+def shufflenet_v1(rng: np.random.Generator, *, groups: int = 3,
+                  num_classes: int = 1000, requant: str = "fp32",
+                  device="cuda"):
+    """ShuffleNet v1 with configurable groups (bench/convolution.cc:108-216):
+    grouped 1x1 convs + channel shuffle + residual/concat units."""
+    stage_channels = {1: 144, 2: 200, 3: 240, 4: 272, 8: 384}[groups]
+    g = GraphBuilder(rng, requant, device=device)
+    c = g.conv("stem", 3, 24, strides=(2, 2), padding=((0, 1), (0, 1)),
+               act="relu")
+    g.maxpool("pool1", (3, 3), (2, 2), ((0, 1), (0, 1)))
+
+    def unit(name, cin, cout, stride, first_unit=False):
+        mid = cout // 4
+        grp = 1 if first_unit else groups
+        g.save(f"{name}_in")
+        if stride == 2:
+            # shortcut: 3x3 avgpool s2 on input
+            g.conv(f"{name}_g1", cin, mid, kernel=(1, 1),
+                   padding=((0, 0), (0, 0)), groups=grp, act="relu")
+            if not first_unit:
+                g.shuffle(f"{name}_shuf", groups)
+            g.conv(f"{name}_dw", mid, mid, strides=(2, 2),
+                   padding=((0, 1), (0, 1)), groups=mid, act="linear")
+            g.conv(f"{name}_g2", mid, cout - cin, kernel=(1, 1),
+                   padding=((0, 0), (0, 0)), groups=groups, act="linear")
+            g.save(f"{name}_main")
+            g.load(f"{name}_in")
+            g.avgpool(f"{name}_short", (3, 3), (2, 2), ((0, 1), (0, 1)))
+            g.save(f"{name}_sc")
+            g.concat(f"{name}_cat", [f"{name}_sc", f"{name}_main"])
+            return cout
+        g.conv(f"{name}_g1", cin, mid, kernel=(1, 1), padding=((0, 0), (0, 0)),
+               groups=grp, act="relu")
+        g.shuffle(f"{name}_shuf", groups)
+        g.conv(f"{name}_dw", mid, mid, padding=((1, 1), (1, 1)), groups=mid,
+               act="linear")
+        g.conv(f"{name}_g2", mid, cout, kernel=(1, 1), padding=((0, 0), (0, 0)),
+               groups=groups, act="linear")
+        g.add(f"{name}_add", f"{name}_in")
+        return cout
+
+    for stage, repeats in enumerate([4, 8, 4]):
+        cout = stage_channels * (2 ** stage)
+        c = unit(f"st{stage}u0", c, cout, 2, first_unit=(stage == 0))
+        for i in range(1, repeats):
+            c = unit(f"st{stage}u{i}", c, cout, 1)
+    g.gap("gap", 7)
+    g.fc("fc", c, num_classes)
+    return g.finish(name=f"shufflenet_v1_g{groups}", input_size=224)
 
 
 def vgg16(rng: np.random.Generator, *, num_classes: int = 1000,

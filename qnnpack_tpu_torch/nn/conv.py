@@ -1,4 +1,4 @@
-"""Quantized convolution: dense (groups = 1) and depthwise.
+"""Quantized convolution: dense, grouped and depthwise.
 
 Zero-point algebra as in qnnpack_tpu/nn/conv.py: the input is padded with
 the input zero point, so a padded tap adds exactly zero to
@@ -6,16 +6,18 @@ sum (a - za)(w - zw), like QNNPACK's zero buffer (src/convolution.c:330-339).
 
   - Depthwise (groups == channels, one channel per group) runs the q8dwconv
     kernel, which reads the window straight from NHWC.
+  - Grouped (groups > 1, more than one channel per group) runs the q8conv
+    kernel, one implicit GEMM per group.  The JAX package's split, einsum
+    and feature_group_count lowerings are TPU forms of the same sums and
+    are not carried over.
   - Dense (groups == 1) routes by `dense_conv_route`: the stem class
     (stride 2, C_in <= 4, kzp 128) to the q8stem kernel, every other dense
-    conv to the q8conv kernel, an implicit GEMM.  Both kernels' plain
-    version is the zero-point-padded `im2col` (K ordered [kh, kw, cin] as
-    the pack lays W out) times the packed weights viewed as [K, N].
+    conv to the q8conv kernel.  The plain version of both kernels is the
+    zero-point-padded `im2col` (K ordered [kh, kw, cin] as the pack lays W
+    out) times the packed weights viewed as [K, N], group by group.
 
 Kernel layout: O x Kh x Kw x Icpg (uint8), QNNPACK's NHWC operator
-convention.  Grouped conv with more than one channel per group, deconv and
-the TPU lowerings (phase layouts, split and einsum grouped 1x1) are not
-ported yet.
+convention.  Deconv and the TPU's phase layouts are not ported yet.
 """
 
 from __future__ import annotations
@@ -137,16 +139,15 @@ def dense_conv_route(packed: PackedConvWeights, strides,
 
 def q8conv2d(a_u8, packed: PackedConvWeights, rparams, strides=(1, 1),
              padding=((0, 0), (0, 0)), dilation=(1, 1)):
-    """Quantized 2D convolution: uint8 NHWC -> uint8 NHWC."""
+    """Quantized 2D convolution: uint8 NHWC -> uint8 NHWC.
+
+    Depthwise convs run q8dwconv, grouped ones q8conv, dense ones the
+    kernel `dense_conv_route` names."""
     strides, dilation = tuple(strides), tuple(dilation)
     if (packed.groups > 1 and packed.group_input_channels == 1
             and packed.group_output_channels == 1):
         return q8dwconv_cuda(a_u8, packed, rparams, strides, padding,
                              dilation)
-    if packed.groups != 1:
-        raise NotImplementedError(
-            "grouped conv with more than one channel per group is not "
-            "ported yet")
     if dense_conv_route(packed, strides, dilation) == "q8stem":
         return q8stem_cuda(a_u8, packed, rparams, padding)
     return q8conv_cuda(a_u8, packed, rparams, strides, padding, dilation)

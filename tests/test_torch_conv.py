@@ -1,8 +1,9 @@
-"""Parity of the port's dense-conv kernels with the JAX package: the q8conv
-and q8stem kernels' plain versions against nn.conv.q8conv2d and against
-q8conv_pallas / q8stem_pallas in interpret mode, the dense-conv route
-(which kernel q8conv2d picks), and the stem kernel's contract.  Inputs come
-from a numpy seed; comparisons are exact."""
+"""Parity of the port's dense and grouped conv kernels with the JAX
+package: the q8conv and q8stem kernels' plain versions against
+nn.conv.q8conv2d and against q8conv_pallas / q8stem_pallas in interpret
+mode, grouped q8conv against q8conv2d's grouped branches, the dense-conv
+route (which kernel q8conv2d picks), and the stem kernel's contract.
+Inputs come from a numpy seed; comparisons are exact."""
 
 import numpy as np
 import pytest
@@ -104,6 +105,78 @@ def test_q8conv_zero_point_padding_is_not_zero():
         q8conv_plain(torch.from_numpy(a), tp, tr, **kw).numpy(), want)
 
 
+GROUPED_CASES = {
+    # h, w, groups, icpg, ocpg, k, stride, padding
+    "g2_1x1": (6, 5, 2, 16, 24, 1, 1, P0),
+    "g3_1x1_icpg20": (5, 6, 3, 20, 72, 1, 1, P0),
+    "g4_1x1_ocpg17": (5, 7, 4, 8, 17, 1, 1, P0),
+    "g8_1x1": (4, 4, 8, 12, 6, 1, 1, P0),
+    "g3_3x3_pad1": (7, 6, 3, 5, 4, 3, 1, P1),
+    "g2_3x3_s2_pad01": (9, 8, 2, 8, 8, 3, 2, S2),
+}
+
+
+@pytest.mark.parametrize("scheme", ["q31", "fp32", "per_channel"])
+@pytest.mark.parametrize("izp,kzp", [(128, 128), (121, 103)])
+@pytest.mark.parametrize("batch", [1, 40])
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+def test_grouped_q8conv_plain_matches_q8conv2d(case, batch, izp, kzp,
+                                                scheme):
+    """Batch 1 takes the JAX package's einsum branch for grouped 1x1, batch
+    40 its feature_group_count branch (config.TuneParams.
+    grouped_1x1_einsum_max_batch = 32)."""
+    h, w, groups, icpg, ocpg, k, s, pad = GROUPED_CASES[case]
+    o = groups * ocpg
+    kernel = u8(o, k, k, icpg)
+    bias = RNG.integers(-20000, 20000, o, dtype=np.int64).astype(np.int32)
+    jp = jconv.pack_conv_weights(kernel, bias, izp, kzp, groups)
+    tp = tconv.pack_conv_weights(kernel, bias, izp, kzp, groups)
+    jr, tr = requant_pair(scheme, o)
+    a = u8(batch, h, w, groups * icpg)
+    kw = dict(strides=(s, s), padding=pad)
+    want = np.asarray(jconv.q8conv2d(jnp.asarray(a), jp, jr, **kw))
+    got = q8conv_plain(torch.from_numpy(a), tp, tr, **kw)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tconv.q8conv2d(torch.from_numpy(a), tp, tr, **kw).numpy(), want)
+
+
+@pytest.mark.parametrize("izp,kzp", [(128, 128), (121, 103)])
+def test_grouped_q8conv_plain_matches_split_branch(izp, kzp):
+    """28x28 at batch 40 with g = 2 takes the JAX package's split-GEMM
+    branch (grouped_1x1_split_min_pixels = 784)."""
+    groups, icpg, ocpg = 2, 8, 12
+    kernel = u8(groups * ocpg, 1, 1, icpg)
+    jp = jconv.pack_conv_weights(kernel, None, izp, kzp, groups)
+    tp = tconv.pack_conv_weights(kernel, None, izp, kzp, groups)
+    jr, tr = requant_pair("fp32", groups * ocpg)
+    a = u8(40, 28, 28, groups * icpg)
+    want = np.asarray(jconv.q8conv2d(jnp.asarray(a), jp, jr))
+    np.testing.assert_array_equal(
+        q8conv_plain(torch.from_numpy(a), tp, tr).numpy(), want)
+
+
+def test_grouped_plain_is_the_dense_conv_of_each_group():
+    """Each group's output channels are the dense conv of its own input
+    channels with its own weights, bias and channel scales."""
+    groups, icpg, ocpg = 3, 4, 5
+    kernel = u8(groups * ocpg, 3, 3, icpg)
+    bias = RNG.integers(-9000, 9000, groups * ocpg).astype(np.int32)
+    scales = RNG.uniform(1e-4, 2e-3, groups * ocpg)
+    a = torch.from_numpy(u8(2, 7, 7, groups * icpg))
+    grouped = q8conv_plain(
+        a, tconv.pack_conv_weights(kernel, bias, 121, 103, groups),
+        tper_channel(scales, 117), padding=P1)
+    for g in range(groups):
+        cout = slice(g * ocpg, (g + 1) * ocpg)
+        dense = q8conv_plain(
+            a[..., g * icpg:(g + 1) * icpg].contiguous(),
+            tconv.pack_conv_weights(kernel[cout], bias[cout], 121, 103),
+            tper_channel(scales[cout], 117), padding=P1)
+        assert torch.equal(grouped[..., cout], dense)
+
+
 STEM_CASES = {
     # h, w, c, o, k, padding
     "7x7_pad23": (23, 22, 3, 8, 7, ((2, 3), (2, 3))),
@@ -183,6 +256,28 @@ def test_q8conv2d_dispatches_by_route(case, monkeypatch):
     tconv.q8conv2d(torch.from_numpy(u8(1, 9, 9, cin)), packed,
                    tmake("fp32", 0.004, 128), strides, pad, dilation)
     assert called == [kernel + "_cuda"]
+
+
+def test_q8conv2d_sends_grouped_convs_to_q8conv(monkeypatch):
+    """Grouped convs (more than one channel per group) run q8conv, also a
+    strided 3x3 one from 3 channels a group that a dense conv would send to
+    q8stem; depthwise ones run q8dwconv."""
+    called = []
+    for name in ("q8stem_cuda", "q8conv_cuda", "q8dwconv_cuda"):
+        real = getattr(tconv, name)
+        monkeypatch.setattr(
+            tconv, name,
+            lambda *a, real=real, name=name, **kw: called.append(name)
+            or real(*a, **kw))
+    rp = tmake("fp32", 0.004, 128)
+    a = torch.from_numpy(u8(1, 9, 9, 6))
+    for icpg, ocpg, strides in [(3, 4, (2, 2)), (2, 2, (1, 1)),
+                                (1, 1, (1, 1))]:
+        groups = 6 // icpg
+        packed = tconv.pack_conv_weights(u8(groups * ocpg, 3, 3, icpg), None,
+                                         128, 128, groups)
+        tconv.q8conv2d(a, packed, rp, strides, P1)
+    assert called == ["q8conv_cuda", "q8conv_cuda", "q8dwconv_cuda"]
 
 
 def test_wrappers_on_cpu_run_plain_and_count_nothing():

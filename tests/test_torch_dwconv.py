@@ -159,13 +159,6 @@ def test_im2col_orders_k_as_the_pack():
     assert torch.equal(cols[0], torch.cat(want))
 
 
-def test_grouped_conv_is_not_ported_yet():
-    _, tp = make_weights(4, 3, 3, 2, 128, 128, 2)
-    _, tr = requant_pair("q31", 4)
-    with pytest.raises(NotImplementedError):
-        tconv.q8conv2d(torch.from_numpy(u8(1, 5, 5, 4)), tp, tr)
-
-
 def test_wrapper_on_cpu_counts_nothing():
     _, tp = make_weights(8, 3, 3, 1, 128, 128, 8)
     _, tr = requant_pair("fp32", 8)

@@ -3,14 +3,16 @@
 - A small graph over every ported tag (conv on all three conv kernels,
   gemm, maxpool, gap, add, save, load, concat, split, pad, flatten) gives
   the JAX graph_forward's bytes, under q31 and fp32 requant.
-- The unported tags and builder methods raise NotImplementedError.
+- The unported tags (deconv, lut, softargmax) and builder methods raise
+  NotImplementedError.
 - ResNet-18 at full width (32x32, batch 2) and SqueezeNet 1.1 (64x64) give
   the JAX forward's logits, through the port's builder and through
   params_from_jax; the ResNet-18 entry point at 224 does too, and the
   port's InferenceServer answers ResNet-18 requests with the batch rows.
 - Each ported zoo builder makes the JAX builder's RNG calls: the raw
   weights and layer specs are equal (vgg16 is left out: its fc6 alone is
-  103 M weights).
+  103 M weights).  The ShuffleNets' forwards are in
+  test_torch_shufflenet.py.
 Comparisons are exact."""
 
 import dataclasses
@@ -54,6 +56,9 @@ def assert_same_spec(jspec, tspec):
                 dataclasses.asdict(tl.rparams)
         elif jt == "gap":
             assert dataclasses.asdict(jl) == dataclasses.asdict(tl)
+        elif jt == "avgpool":
+            assert dataclasses.asdict(jl[0]) == dataclasses.asdict(tl[0])
+            assert jl[1:] == tl[1:]
         elif jt == "add":
             assert jl[0] == tl[0]
             assert dataclasses.asdict(jl[1]) == dataclasses.asdict(tl[1])
@@ -140,17 +145,6 @@ def test_unported_builder_methods_raise(method):
         getattr(g, method)("x", 8, 8)
 
 
-def test_builder_shuffle_and_avgpool_emit_but_do_not_run():
-    g = tgraph.GraphBuilder(np.random.default_rng(0), device="cpu")
-    g.shuffle("shuf", 2)
-    g.avgpool("avg", (3, 3))
-    params, spec = g.finish()
-    assert [t for t, _, _ in spec.layers] == ["shuffle", "avgpool"]
-    with pytest.raises(NotImplementedError, match="x8zip"):
-        tgraph.graph_forward(params, spec,
-                             torch.zeros(1, 4, 4, 8, dtype=torch.uint8))
-
-
 @functools.lru_cache(maxsize=None)
 def jax_model(name, seed):
     return getattr(jzoo, name)(np.random.default_rng(seed))
@@ -211,15 +205,31 @@ def test_entry_rejects_unknown_model():
         entry(device="cpu", model="vgg16")
 
 
-@pytest.mark.parametrize("name", ["resnet18", "resnet50", "squeezenet_v10",
-                                  "squeezenet_v11", "mobilenet_v1"])
+BUILDERS = {
+    # case -> (builder, keyword arguments)
+    "resnet18": ("resnet18", {}),
+    "resnet50": ("resnet50", {}),
+    "squeezenet_v10": ("squeezenet_v10", {}),
+    "squeezenet_v11": ("squeezenet_v11", {}),
+    "mobilenet_v1": ("mobilenet_v1", {}),
+    "shufflenet_v1_g1": ("shufflenet_v1", {"groups": 1}),
+    "shufflenet_v1_g3": ("shufflenet_v1", {"groups": 3}),
+    "shufflenet_v1_g8": ("shufflenet_v1", {"groups": 8}),
+    "shufflenet_v2_x0.5": ("shufflenet_v2", {"width": 0.5}),
+    "shufflenet_v2_x1.0": ("shufflenet_v2", {"width": 1.0}),
+}
+
+
+@pytest.mark.parametrize("name", list(BUILDERS))
 def test_builder_rng_matches_jax(name, monkeypatch):
     """Same seed, same raw weights and specs.  The JAX weight packing is
     stubbed out here: the raw weights do not depend on it."""
+    builder, kwargs = BUILDERS[name]
     monkeypatch.setattr(jgraph, "pack_conv_weights", lambda *a, **k: None)
     monkeypatch.setattr(jgraph, "pack_gemm_weights", lambda *a, **k: None)
-    _, js = getattr(jzoo, name)(np.random.default_rng(9))
-    _, ts = getattr(tzoo, name)(np.random.default_rng(9), device="cpu")
+    _, js = getattr(jzoo, builder)(np.random.default_rng(9), **kwargs)
+    _, ts = getattr(tzoo, builder)(np.random.default_rng(9), device="cpu",
+                                   **kwargs)
     assert_same_spec(js, ts)
 
 

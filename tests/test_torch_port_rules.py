@@ -77,6 +77,14 @@ def test_resnet18_entry_and_zoo_raise_without_gpu(no_gpu):
         tgraph.GraphBuilder(np.random.default_rng(0))
 
 
+def test_shufflenet_entry_and_zoo_raise_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        entry(model="shufflenet_v1_g3")
+    for builder in (tzoo.shufflenet_v1, tzoo.shufflenet_v2):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            builder(np.random.default_rng(0))
+
+
 def test_builder_model_and_server_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tm.build_mobilenet_v2(np.random.default_rng(0), input_size=32)
@@ -97,7 +105,7 @@ def test_cpu_forward_launches_no_kernel():
     assert tuple(y.shape) == (2, 10)
     assert tkernels.launch_counts() == {
         "q8gemm": 0, "q8dwconv": 0, "q8vadd": 0, "q8gavgpool": 0,
-        "q8conv": 0, "q8stem": 0, "u8maxpool": 0}
+        "q8conv": 0, "q8stem": 0, "u8maxpool": 0, "q8avgpool": 0}
 
 
 def test_cpu_resnet18_forward_launches_no_kernel():
@@ -136,11 +144,13 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 
 def test_four_kernels_with_no_library_calls():
-    """The seven kernel sources (four of the first slice, three of the
-    second) and their shared headers call no library."""
+    """The eight kernel sources (four of the first slice, three of the
+    second, q8avgpool of the third) and their shared headers call no
+    library."""
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["q8conv.cu", "q8dwconv.cu", "q8gavgpool.cu",
-                     "q8gemm.cu", "q8stem.cu", "q8vadd.cu", "u8maxpool.cu"]
+    assert names == ["q8avgpool.cu", "q8conv.cu", "q8dwconv.cu",
+                     "q8gavgpool.cu", "q8gemm.cu", "q8stem.cu", "q8vadd.cu",
+                     "u8maxpool.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == \
         ["igemm_tile.cuh", "requant.cuh"]
     for p in _build.CSRC.iterdir():
