@@ -4,32 +4,43 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (built for sm_90a: an H100) and nvcc; exits non-zero
-without them.  Three main paths, each through qnnpack_tpu_torch.entry (seed
-0, fp32 requant, 224): MobileNetV2 1.0_224, and ResNet-18 and ShuffleNet
-v1 (groups = 3) through the graph runtime.  Phases, each of which raises on
-any failure:
+without them.  Five main paths: four models through qnnpack_tpu_torch.entry
+(seed 0, fp32 requant) - MobileNetV2 1.0_224, ResNet-18 and ShuffleNet v1
+(groups = 3) through the graph runtime at 224, and the int8 BERT-base
+encoder at sequence 128 - and the lifecycle API's elementwise operators
+(qnnpack_tpu_torch.ops).  Phases, each of which raises on any failure:
 
   1. print the card (nvidia-smi name and power limit) and versions, build
-     the eight CUDA kernels from qnnpack_tpu_torch/kernels/csrc/;
+     the twelve CUDA kernels from qnnpack_tpu_torch/kernels/csrc/;
   2. hold every kernel against its plain PyTorch version, run on CPU copies
      of the same inputs, at the main paths' shapes plus kzp != 128, q31,
      precise, gemmlowp, per-channel, ragged-channel, odd-size, grouped
-     (g = 2, 3, 4, 8) and izp != 128 cases: torch.equal, zero tolerance
-     (the integer math is exact);
+     (g = 2, 3, 4, 8), izp != 128, all three q8bmm zero-point cases, odd N
+     and rows off a 4-byte boundary: torch.equal, zero tolerance (the
+     integer math is exact);
   3. for each model, batch 1: the forward on the card must equal the plain
-     CPU forward byte for byte;
+     CPU forward byte for byte (logits [1, 1000] for the image models,
+     hidden states [1, 128, 768] for BERT, not constant);
   4. for each model, count kernel launches over one forward (counts set to
      0 just before it, read just after):
        MobileNetV2  q8gemm 35, q8stem 1, q8dwconv 17, q8vadd 10, q8gavgpool 1
        ResNet-18    q8stem 1, u8maxpool 1, q8conv 19, q8vadd 8,
                     q8gavgpool 1, q8gemm 1
        ShuffleNet   q8stem 1, u8maxpool 1, q8gemm 2, q8conv 31 (grouped),
-                    q8dwconv 16, q8avgpool 3, q8vadd 13, q8gavgpool 1;
-  5. serve single-image requests through qnnpack_tpu_torch.serving
-     .InferenceServer (16 MobileNetV2, 8 ResNet-18, 8 ShuffleNet); every
-     answer must equal its row of a direct batch forward;
-  6. time with CUDA events (warm-up, median of repeats): each model's
-     forward img/s at batch 1 and 128, and every kernel launch of each
+                    q8dwconv 16, q8avgpool 3, q8vadd 13, q8gavgpool 1
+       BERT         q8gemm 48, q8bmm 24, u8rmax 12, u8lut32norm 12,
+                    q8vadd 24
+     and every other kernel 0;
+  5. serve single-sample requests through qnnpack_tpu_torch.serving
+     .InferenceServer (16 MobileNetV2, 8 ResNet-18, 8 ShuffleNet, 8 BERT);
+     every answer must equal its row of a direct batch forward;
+  6. the lifecycle operators (Add, Clamp, Sigmoid, LeakyReLU, SoftArgMax,
+     ChannelShuffle), created on the card: each output must equal the same
+     operator's CPU run, and one run of all six launches q8vadd 1, u8clamp
+     1, u8rmax 1, u8lut32norm 1 and nothing else; u8clamp is timed on a
+     128x56x56x96 tensor beside torch.clamp;
+  7. time with CUDA events (warm-up, median of repeats): each model's
+     forward samples/s at batch 1 and 128, and every kernel launch of each
      forward, on that layer's real input, beside its bound
      max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s), its plain version on
      the card and one library call that computes the same product or
@@ -39,17 +50,20 @@ any failure:
      dense q8conv and q8stem; F.conv2d in float32 (channels-last, groups =
      G) for grouped q8conv and q8dwconv; F.max_pool2d on float16 for
      u8maxpool; F.avg_pool2d in float32 with divisor 1 for q8avgpool;
-     torch.sum to int32 for q8gavgpool; none for q8vadd (no one call
-     computes add_quantize's two rescales and clamp).  Each launch's output
-     must equal its plain version's.  The MobileNetV2 stem's old route
-     (im2col + q8gemm) is timed beside q8stem at its shape, and the
-     data movement outside the kernels (the channel shuffles and concats)
-     as a sum per forward.
+     torch.sum to int32 for q8gavgpool; torch.bmm in float32 for q8bmm;
+     torch.amax on uint8 for u8rmax; none for q8vadd (no one call computes
+     add_quantize's two rescales and clamp) and u8lut32norm (no one call
+     does the table lookup, the row sum and the uint32 divide).  Each
+     launch's output must equal its plain version's.  The MobileNetV2
+     stem's old route (im2col + q8gemm) is timed beside q8stem at its
+     shape, and the data movement outside the kernels (the channel
+     shuffles and concats, BERT's head transposes) as a sum per forward.
 
 Prints the {"kernels": [...]} line (launches over one batch-1 forward of
-each path, times summed over one batch-128 forward of each path), the
-nvidia-smi line and, last, {"ok": true, "device": {...}}.  Per-shape
-timings go to chiprun_out/chip_smoke.json.
+each path, times summed over one batch-128 forward of each path; u8clamp's
+over the lifecycle run and the 128x56x56x96 tensor), the nvidia-smi line
+and, last, {"ok": true, "device": {...}}.  Per-shape timings go to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -65,18 +79,32 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense int8 tensor rate
+KERNEL_NAMES = ("q8gemm", "q8dwconv", "q8vadd", "q8gavgpool", "q8conv",
+                "q8stem", "u8maxpool", "q8avgpool", "q8bmm", "u8rmax",
+                "u8lut32norm", "u8clamp")
+
+
+def _counts(**nonzero):
+    return {name: nonzero.get(name, 0) for name in KERNEL_NAMES}
+
+
 EXPECTED_LAUNCHES = {
-    "mobilenet_v2": {"q8gemm": 35, "q8dwconv": 17, "q8vadd": 10,
-                     "q8gavgpool": 1, "q8conv": 0, "q8stem": 1,
-                     "u8maxpool": 0, "q8avgpool": 0},
-    "resnet18": {"q8gemm": 1, "q8dwconv": 0, "q8vadd": 8, "q8gavgpool": 1,
-                 "q8conv": 19, "q8stem": 1, "u8maxpool": 1, "q8avgpool": 0},
-    "shufflenet_v1_g3": {"q8gemm": 2, "q8dwconv": 16, "q8vadd": 13,
-                         "q8gavgpool": 1, "q8conv": 31, "q8stem": 1,
-                         "u8maxpool": 1, "q8avgpool": 3},
+    "mobilenet_v2": _counts(q8gemm=35, q8dwconv=17, q8vadd=10, q8gavgpool=1,
+                            q8stem=1),
+    "resnet18": _counts(q8gemm=1, q8vadd=8, q8gavgpool=1, q8conv=19,
+                        q8stem=1, u8maxpool=1),
+    "shufflenet_v1_g3": _counts(q8gemm=2, q8dwconv=16, q8vadd=13,
+                                q8gavgpool=1, q8conv=31, q8stem=1,
+                                u8maxpool=1, q8avgpool=3),
+    "bert_base_s128": _counts(q8gemm=48, q8bmm=24, u8rmax=12, u8lut32norm=12,
+                              q8vadd=24),
 }
-SERVED = {"mobilenet_v2": 16, "resnet18": 8, "shufflenet_v1_g3": 8}
-DATA_MOVEMENT = ("x8zip", "concat")  # timed rows that are not kernels
+# One run of the six lifecycle operators.
+OPS_LAUNCHES = _counts(q8vadd=1, u8clamp=1, u8rmax=1, u8lut32norm=1)
+SERVED = {"mobilenet_v2": 16, "resnet18": 8, "shufflenet_v1_g3": 8,
+          "bert_base_s128": 8}
+# Timed rows that are not kernels.
+DATA_MOVEMENT = ("x8zip", "concat", "transpose")
 SOURCES = {
     "q8gemm": ("qnnpack_tpu_torch/kernels/csrc/q8gemm.cu",
                "qnnpack_tpu/kernels/q8gemm_small.py:134"),
@@ -94,6 +122,16 @@ SOURCES = {
                   "qnnpack_tpu/kernels/pool.py:62"),
     "q8avgpool": ("qnnpack_tpu_torch/kernels/csrc/q8avgpool.cu",
                   "qnnpack_tpu/kernels/pool.py:117"),
+    # q8bmm and u8lut32norm replace XLA code of the JAX package (no Pallas
+    # form): the port runs every op of a path on a kernel.
+    "q8bmm": ("qnnpack_tpu_torch/kernels/csrc/q8bmm.cu",
+              "qnnpack_tpu/nn/gemm.py:241"),
+    "u8rmax": ("qnnpack_tpu_torch/kernels/csrc/u8rmax.cu",
+               "qnnpack_tpu/kernels/vpu_ops.py:117"),
+    "u8lut32norm": ("qnnpack_tpu_torch/kernels/csrc/u8lut32norm.cu",
+                    "qnnpack_tpu/nn/elementwise.py:207"),
+    "u8clamp": ("qnnpack_tpu_torch/kernels/csrc/u8clamp.cu",
+                "qnnpack_tpu/kernels/vpu_ops.py:105"),
 }
 
 
@@ -155,11 +193,13 @@ def check_kernels(torch, err):
     """Each kernel vs its plain version on CPU copies of the same inputs."""
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.nn.conv import pack_conv_weights
+    from qnnpack_tpu_torch.nn.elementwise import (build_softargmax_lut,
+                                                  lut32_tensor)
     from qnnpack_tpu_torch.nn.packing import pack_gemm_weights
     from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
     from qnnpack_tpu_torch.quant.params import (
         compute_add_quant_params, compute_avgpool_quant_params,
-        compute_per_channel_fp32_params)
+        compute_per_channel_fp32_params, compute_u8_clamping_params)
 
     rng = np.random.default_rng(1234)
     cuda = torch.device("cuda")
@@ -412,6 +452,89 @@ def check_kernels(torch, err):
         x = torch.from_numpy(u8(*shape))
         check("q8gavgpool", label, K.q8gavgpool_cuda(x.to(cuda), params),
               K.q8gavgpool_plain(x, params))
+
+    # q8bmm: (label, G, M, K, N, za, zb, scheme); BERT's two products at
+    # batch 1 (za = zb = 128: both biased zero points 0; za = 0: the column
+    # sum), then the other zero-point terms, the schemes, ragged edges and
+    # a batch past gridDim.z's 65535.
+    bmm_cases = [
+        ("scores 12x[128x64]x[64x128] za=zb=128", 12, 128, 64, 128, 128,
+         128, "fp32"),
+        ("context 12x[128x128]x[128x64] za=0 zb=128", 12, 128, 128, 64, 0,
+         128, "fp32"),
+        ("za 37 zb 201 q31 5x33x70x9", 5, 33, 70, 9, 37, 201, "q31"),
+        ("za 0 zb 128 precise 3x65x200x70", 3, 65, 200, 70, 0, 128,
+         "precise"),
+        ("za 128 zb 0 gemmlowp 2x17x33x129", 2, 17, 33, 129, 128, 0,
+         "gemmlowp"),
+        ("za 0 zb 0 fp32 7x40x50x30", 7, 40, 50, 30, 0, 0, "fp32"),
+        ("per-channel za 37 zb 201 4x64x96x72", 4, 64, 96, 72, 37, 201,
+         "pc"),
+        ("ragged 1x1x1x1 za 37 zb 201", 1, 1, 1, 1, 37, 201, "fp32"),
+        ("G 70000 2x3x5 za 37 zb 201 q31", 70000, 2, 3, 5, 37, 201, "q31"),
+    ]
+    for label, g, m, k, n, za, zb, scheme in bmm_cases:
+        rp = rparams(scheme, n, {})
+        a, b = torch.from_numpy(u8(g, m, k)), torch.from_numpy(u8(g, k, n))
+        check("q8bmm", label,
+              K.q8bmm_cuda(a.to(cuda), b.to(cuda), za, zb, rp),
+              K.q8bmm_plain(a, b, za, zb, rp))
+
+    def placed(x, offset):
+        """`x` on the card at `offset` bytes past an aligned allocation."""
+        buf = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    # u8rmax and u8lut32norm: (label, R, N, offset of the rows, scale);
+    # BERT's score rows, odd N (rows off the 4-byte boundary), rows of 0
+    # and of 255, and base pointers off by one and two bytes.
+    row_cases = [
+        ("scores b1 1536x128", 1536, 128, 0, 0.05),
+        ("N=1 37x1", 37, 1, 0, 0.1),
+        ("N=3 41x3", 41, 3, 0, 0.5),
+        ("N=301 29x301, rows of 0 and 255", 29, 301, 0, 1.0),
+        ("base + 1 byte 64x128", 64, 128, 1, 0.05),
+        ("base + 2 bytes N=4096 5x4096", 5, 4096, 2, 0.01),
+    ]
+    for label, r, n, offset, scale in row_cases:
+        x = torch.from_numpy(u8(r, n))
+        x[0] = 0
+        x[-1] = 255
+        rmax = K.u8rmax_plain(x)
+        check("u8rmax", label, K.u8rmax_cuda(placed(x, offset)), rmax)
+        lut = lut32_tensor(build_softargmax_lut(scale, n))
+        check("u8lut32norm", label,
+              K.u8lut32norm_cuda(placed(x, offset), rmax.to(cuda),
+                                 lut.to(cuda)),
+              K.u8lut32norm_plain(x, rmax, lut))
+    x = torch.from_numpy(u8(19, 130))
+    wrap = lut32_tensor(rng.integers(2**31, 2**32, 256, dtype=np.uint64)
+                        .astype(np.uint32))
+    rmax = K.u8rmax_plain(x)
+    check("u8lut32norm", "table past 2^31 (uint32 wrap) 19x130",
+          K.u8lut32norm_cuda(x.to(cuda), rmax.to(cuda), wrap.to(cuda)),
+          K.u8lut32norm_plain(x, rmax, wrap))
+
+    # u8clamp: (label, shape, offset, clamp); sizes about a 16-byte
+    # vector, a tail, a base off the 16-byte boundary, and the timed
+    # 128x56x56x96 tensor.
+    clamp_cases = [
+        ("1 byte", (1,), 0, (20, 200)),
+        ("15 bytes", (15,), 0, (20, 200)),
+        ("16 bytes", (16,), 0, (0, 255)),
+        ("17 bytes", (17,), 0, (128, 128)),
+        ("3x7x11x5", (3, 7, 11, 5), 0, (20, 200)),
+        ("base + 1 byte 4097", (4097,), 1, (20, 200)),
+        ("1000003 bytes", (1000003,), 0, (7, 250)),
+        ("128x56x56x96", (128, 56, 56, 96), 0, (20, 200)),
+    ]
+    for label, shape, offset, (lo, hi) in clamp_cases:
+        x = torch.from_numpy(u8(*shape))
+        params = compute_u8_clamping_params(lo, hi)
+        check("u8clamp", label, K.u8clamp_cuda(placed(x, offset), params),
+              K.u8clamp_plain(x, params))
     torch.cuda.synchronize()
 
 
@@ -478,6 +601,110 @@ def conv2d_yardstick(torch, a, p, strides, padding):
                                               groups=p.groups)
 
 
+def bert_calls(torch, params, spec, x):
+    """kernel_calls' records for the BERT encoder, walking its forward
+    (models/bert.py:bert_encoder_forward) layer by layer: each record's
+    `run` gives the input of the next.  The head split (q, k, v) and merge
+    are the forward's copies, timed as data movement."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.models.bert import ACT_ZP
+    from qnnpack_tpu_torch.nn.dtypes import u8_to_biased_i8
+    cfg = spec["cfg"]
+    b, s, h = x.shape
+    nh, dh = cfg.heads, cfg.head_dim
+
+    def gemm(name, a2, p, rp):
+        m, k = a2.shape
+        return dict(kernel="q8gemm", label=f"{name} {m}x{k}->{p.n}",
+                    run=lambda: K.q8gemm_cuda(a2, p, rp),
+                    plain=lambda: K.q8gemm_plain(a2, p, rp),
+                    library=int_mm_yardstick(torch, a2, p.w),
+                    bytes=m * k + k * p.n + 4 * p.n + m * p.n,
+                    ops=2 * m * p.n * k)
+
+    def bmm(name, a3, b3, za, zb, rp):
+        g, m, k = a3.shape
+        n = b3.shape[-1]
+        af = u8_to_biased_i8(a3).float()
+        bf = u8_to_biased_i8(b3).float()
+        return dict(kernel="q8bmm",
+                    label=f"{name} {g}x[{m}x{k}]x[{k}x{n}] za {za} zb {zb}",
+                    run=lambda: K.q8bmm_cuda(a3, b3, za, zb, rp),
+                    plain=lambda: K.q8bmm_plain(a3, b3, za, zb, rp),
+                    library=lambda: torch.bmm(af, bf),
+                    bytes=g * (m * k + k * n + m * n), ops=2 * g * m * n * k)
+
+    def vadd(name, a, r, qp):
+        n = a.numel()
+        return dict(kernel="q8vadd", label=f"{name} {tuple(a.shape)}",
+                    run=lambda: K.q8vadd_cuda(a, r, qp),
+                    plain=lambda: K.q8vadd_plain(a, r, qp), library=None,
+                    bytes=3 * n, ops=4 * n)
+
+    def moved(name, fn, t):
+        return dict(kernel="transpose", label=f"{name} {tuple(t.shape)}",
+                    run=fn, bytes=2 * t.numel())
+
+    lut = spec["softargmax_lut"]
+    for i, layer in enumerate(params):
+        resid = x
+        rec = gemm(f"l{i}.qkv", x.reshape(b * s, h), layer["qkv"],
+                   spec["rp_proj"])
+        yield rec
+        qkv = rec["run"]().reshape(b, s, 3, nh, dh)
+
+        def split(qkv=qkv):
+            return [qkv[:, :, j].permute(*order).reshape(b * nh, *shape)
+                    .contiguous()
+                    for j, order, shape in ((0, (0, 2, 1, 3), (s, dh)),
+                                            (1, (0, 2, 3, 1), (dh, s)),
+                                            (2, (0, 2, 1, 3), (s, dh)))]
+        yield moved(f"l{i}.split_qkv", split, qkv)
+        q, k, v = split()
+        rec = bmm(f"l{i}.scores", q, k, ACT_ZP, ACT_ZP, spec["rp_scores"])
+        yield rec
+        rows = rec["run"]().reshape(-1, s)
+        r, n = rows.shape
+        yield dict(kernel="u8rmax", label=f"l{i}.rmax {r}x{n}",
+                   run=lambda rows=rows: K.u8rmax_cuda(rows),
+                   plain=lambda rows=rows: K.u8rmax_plain(rows),
+                   library=lambda rows=rows: torch.amax(rows, dim=-1),
+                   bytes=r * n + r, ops=r * n)
+        rmax = K.u8rmax_cuda(rows)
+        rec = dict(kernel="u8lut32norm", label=f"l{i}.lut32norm {r}x{n}",
+                   run=lambda rows=rows, rmax=rmax: K.u8lut32norm_cuda(
+                       rows, rmax, lut),
+                   plain=lambda rows=rows, rmax=rmax: K.u8lut32norm_plain(
+                       rows, rmax, lut),
+                   library=None, bytes=2 * r * n + r + 4 * 256,
+                   ops=6 * r * n)
+        yield rec
+        probs = rec["run"]().reshape(b * nh, s, s)
+        rec = bmm(f"l{i}.context", probs, v, 0, ACT_ZP, spec["rp_ctx"])
+        yield rec
+        ctx = rec["run"]()
+
+        def merge(ctx=ctx):
+            return ctx.reshape(b, nh, s, dh).permute(0, 2, 1, 3).reshape(
+                b * s, h).contiguous()
+        yield moved(f"l{i}.merge_heads", merge, ctx)
+        rec = gemm(f"l{i}.out", merge(), layer["out"], spec["rp_proj"])
+        yield rec
+        rec = vadd(f"l{i}.add_attn", rec["run"]().reshape(b, s, h), resid,
+                   spec["add"])
+        yield rec
+        x = rec["run"]()
+        rec = gemm(f"l{i}.ffn1", x.reshape(b * s, h), layer["ffn1"],
+                   spec["rp_relu"])
+        yield rec
+        rec = gemm(f"l{i}.ffn2", rec["run"](), layer["ffn2"], spec["rp_proj"])
+        yield rec
+        rec = vadd(f"l{i}.add_ffn", rec["run"]().reshape(b, s, h), x,
+                   spec["add"])
+        yield rec
+        x = rec["run"]()
+
+
 def kernel_calls(torch, model, params, spec, x):
     """One record per kernel launch of the forward on `x`: its kernel, a
     label, closures running the kernel, the plain version and the library
@@ -489,6 +716,9 @@ def kernel_calls(torch, model, params, spec, x):
     from qnnpack_tpu_torch.nn.elementwise import x8zip
     F = torch.nn.functional
 
+    if model == "bert_base_s128":
+        yield from bert_calls(torch, params, spec, x)
+        return
     for tag, name, layer, p, a, other in traced_inputs(model, params, spec,
                                                        x):
         if tag == "add":
@@ -608,7 +838,7 @@ def kernel_calls(torch, model, params, spec, x):
 def time_main_path(torch, model, params, spec, x, err, plain_repeats):
     """Time every kernel launch of the forward on `x`, its plain version
     and yardstick; each kernel's output must equal its plain version's.
-    Data movement (shuffles, concats) is timed alone."""
+    Data movement (shuffles, concats, head transposes) is timed alone."""
     rows = []
     for call in kernel_calls(torch, model, params, spec, x):
         if call["kernel"] in DATA_MOVEMENT:
@@ -657,6 +887,91 @@ def forward_ips(torch, fn, params, x, iters):
     return x.shape[0] * iters / (ms / 1e3), ms / iters
 
 
+def check_output(torch, model, y, y_cpu):
+    """Raise unless the card's batch-1 output `y` has the model's shape and
+    equals the CPU forward's `y_cpu` byte for byte, and is not constant."""
+    want = (1, 1000) if model != "bert_base_s128" else (1, 128, 768)
+    if tuple(y.shape) != want or y.dtype != torch.uint8:
+        raise AssertionError(f"{model} output {tuple(y.shape)} {y.dtype}, "
+                             f"want {want} uint8")
+    if not torch.equal(y.cpu(), y_cpu):
+        diff = (y.cpu().int() - y_cpu.int()).abs()
+        raise AssertionError(
+            f"{model} forward differs in {int((diff > 0).sum())} values, "
+            f"max |err| {int(diff.max())}")
+    if int(y_cpu.max()) == int(y_cpu.min()):
+        raise AssertionError(f"{model} output is constant")
+    log(f"    equal; output min {int(y_cpu.min())} max {int(y_cpu.max())}, "
+        f"{len(torch.unique(y_cpu))} distinct values")
+
+
+def check_ops(torch, err):
+    """Phase 6: the lifecycle operators created on the card against the same
+    operators on the CPU, the launches of one run of all six (counts set to
+    0 just before, read just after), and u8clamp timed on a 128x56x56x96
+    tensor beside torch.clamp.  Returns (launch counts, timing rows)."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch import ops
+
+    rng = np.random.default_rng(99)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.int64)
+                                .astype(np.uint8))
+
+    add = dict(a_zero_point=10, a_scale=0.25, b_zero_point=200, b_scale=0.75,
+               sum_zero_point=128, sum_scale=0.5)
+    cases = [  # (operator, create kwargs, inputs)
+        ("Add", add, [u8(128, 1000), u8(128, 1000)]),
+        ("Clamp", dict(output_min=20, output_max=200), [u8(128, 56, 56, 96)]),
+        ("Sigmoid", dict(input_zero_point=121, input_scale=0.25),
+         [u8(64, 333)]),
+        ("LeakyReLU", dict(negative_slope=0.01, input_zero_point=121,
+                           input_scale=0.25, output_zero_point=100,
+                           output_scale=0.5), [u8(64, 333)]),
+        ("SoftArgMax", dict(channels=1000, input_scale=0.1), [u8(128, 1000)]),
+        ("ChannelShuffle", dict(groups=3, group_channels=80),
+         [u8(128, 28, 28, 240)]),
+    ]
+    cuda = torch.device("cuda")
+    on_card = [(name, getattr(ops, name)(**kw),
+                [x.to(cuda) for x in xs]) for name, kw, xs in cases]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    outputs = [op(*xs) for _, op, xs in on_card]
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    log(f"    one run of the six operators: {counts}")
+    if counts != OPS_LAUNCHES:
+        raise AssertionError(f"operator launches {counts} != {OPS_LAUNCHES}")
+    kernel_of = {"Add": "q8vadd", "Clamp": "u8clamp",
+                 "SoftArgMax": "u8lut32norm"}
+    for (name, kw, xs), got in zip(cases, outputs):
+        want = getattr(ops, name)(**kw, device="cpu")(*xs)
+        label = f"ops.{name} {tuple(xs[0].shape)}"
+        if name in kernel_of:
+            compare(torch, err, kernel_of[name], label, got, want)
+        elif not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{label}: card != CPU")
+        else:
+            log(f"  {'(torch)':11s} {label:44s} equal")
+
+    clamp = on_card[1][1]
+    x = on_card[1][2][0]
+    n = x.numel()
+    lo, hi = clamp.qparams.output_min, clamp.qparams.output_max
+    row = dict(kernel="u8clamp", label=f"ops.Clamp {tuple(x.shape)}",
+               bytes=2 * n, ops=2 * n,
+               ms=time_ms(lambda: K.u8clamp_cuda(x, clamp.qparams), torch),
+               plain_ms=time_ms(lambda: K.u8clamp_plain(x, clamp.qparams),
+                                torch),
+               library_ms=time_ms(lambda: torch.clamp(x, lo, hi), torch))
+    log(f"    u8clamp {tuple(x.shape)}: {row['ms']:.4f} ms, bound "
+        f"{2 * n / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes), plain "
+        f"{row['plain_ms']:.4f} ms, torch.clamp {row['library_ms']:.4f} ms")
+    return counts, [row]
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -665,7 +980,7 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
     from qnnpack_tpu_torch import kernels as K
-    from qnnpack_tpu_torch.entry import entry
+    from qnnpack_tpu_torch.entry import entry, input_shape
     from qnnpack_tpu_torch.kernels import _build
     from qnnpack_tpu_torch.serving import InferenceServer
 
@@ -693,24 +1008,16 @@ def main() -> int:
     launches = {}
     with torch.inference_mode():
         for model in EXPECTED_LAUNCHES:
-            log(f"[3] {model} 224 fp32, seed 0, batch 1: card vs CPU plain")
+            shape = (1,) + input_shape(model)
+            log(f"[3] {model} {shape} fp32, seed 0, batch 1: card vs CPU "
+                "plain")
             fn, (params, x) = entry(model=model)
             fn_cpu, (params_cpu, x_cpu) = entry(device="cpu", model=model)
             models[model] = (fn, params, x)
             y = fn(params, x)
             y_cpu = fn_cpu(params_cpu, x_cpu)
             del params_cpu
-            if y.shape != (1, 1000) or y.dtype != torch.uint8:
-                raise AssertionError(f"logits {tuple(y.shape)} {y.dtype}")
-            if not torch.equal(y.cpu(), y_cpu):
-                diff = (y.cpu().int() - y_cpu.int()).abs()
-                raise AssertionError(
-                    f"forward differs in {int((diff > 0).sum())} logits, "
-                    f"max |err| {int(diff.max())}")
-            if int(y_cpu.max()) == int(y_cpu.min()):
-                raise AssertionError("logits are constant")
-            log(f"    equal; logits min {int(y_cpu.min())} max "
-                f"{int(y_cpu.max())}")
+            check_output(torch, model, y, y_cpu)
 
             log(f"[4] {model}: launches over one forward (main path)")
             K.reset_launch_counts()
@@ -727,16 +1034,16 @@ def main() -> int:
     latency = {}
     for model, count in SERVED.items():
         fn, params, _ = models[model]
-        log(f"[5] {model} InferenceServer: {count} single-image requests")
-        images = rng.integers(0, 256, (count, 224, 224, 3),
-                              dtype=np.int64).astype(np.uint8)
+        log(f"[5] {model} InferenceServer: {count} single-sample requests")
+        samples = rng.integers(0, 256, (count,) + input_shape(model),
+                               dtype=np.int64).astype(np.uint8)
         with torch.inference_mode():
-            direct = fn(params, torch.from_numpy(images).cuda()).cpu().numpy()
+            direct = fn(params, torch.from_numpy(samples).cuda()).cpu().numpy()
         K.reset_launch_counts()
         server = InferenceServer(lambda xb, fn=fn, p=params: fn(p, xb),
-                                 (224, 224, 3), max_batch=8)
+                                 input_shape(model), max_batch=8)
         with server:
-            futures = [server.submit(img, block=True) for img in images]
+            futures = [server.submit(x, block=True) for x in samples]
             answers = [f.result(timeout=300) for f in futures]
         torch.cuda.synchronize()
         served = K.launch_counts()
@@ -755,25 +1062,29 @@ def main() -> int:
             f"batches, launches {served}, p50 latency {latency[model]:.2f} "
             "ms")
 
-    log("[6] timings (CUDA events, median of repeats)")
-    # The float32 library convolutions must sum the integers exactly.
+    log("[6] lifecycle operators on the card against their CPU runs")
+    per_shape = {}
+    launches["ops"], per_shape["ops b128"] = check_ops(torch, max_err)
+
+    log("[7] timings (CUDA events, median of repeats)")
+    # The float32 library products must sum the integers exactly.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     forward = {}
-    per_shape = {}
     with torch.inference_mode():
         for model, (fn, params, x) in models.items():
+            unit = "seq" if model == "bert_base_s128" else "img"
             ips1, ms1 = forward_ips(torch, fn, params, x, iters=20)
             xb = torch.from_numpy(rng.integers(
-                0, 256, (128, 224, 224, 3),
+                0, 256, (128,) + input_shape(model),
                 dtype=np.int64).astype(np.uint8)).cuda()
             ips128, ms128 = forward_ips(torch, fn, params, xb, iters=3)
-            forward[model] = {"b1_ms": ms1, "b1_img_per_s": ips1,
-                              "b128_ms": ms128, "b128_img_per_s": ips128}
+            forward[model] = {"unit": unit, "b1_ms": ms1, "b1_per_s": ips1,
+                              "b128_ms": ms128, "b128_per_s": ips128}
             log(f"    {model} forward batch 1: {ms1:.3f} ms, {ips1:.1f} "
-                "img/s")
+                f"{unit}/s")
             log(f"    {model} forward batch 128: {ms128:.3f} ms, "
-                f"{ips128:.1f} img/s")
+                f"{ips128:.1f} {unit}/s")
             for batch, xin in ((1, x), (128, xb)):
                 rows = time_main_path(torch, model, params, fn.spec, xin,
                                       max_err, 3 if batch == 1 else 1)
@@ -784,8 +1095,8 @@ def main() -> int:
                         continue
                     lib = ("-" if s["library_ms"] is None
                            else f"{s['library_ms']:.4f}")
-                    log(f"    {model} b{batch:<3d} {name:10s} "
-                        f"{s['shapes']:2d} launches: {s['ms']:.4f} ms, "
+                    log(f"    {model} b{batch:<3d} {name:11s} "
+                        f"{s['shapes']:3d} launches: {s['ms']:.4f} ms, "
                         f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}), "
                         f"plain {s['plain_ms']:.4f} ms, library {lib} ms")
                 moved = [r for r in rows if r["kernel"] in DATA_MOVEMENT]
@@ -793,8 +1104,8 @@ def main() -> int:
                     moved_ms = sum(r["ms"] for r in moved)
                     fwd_ms = forward[model][f"b{batch}_ms"]
                     forward[model][f"b{batch}_data_movement_ms"] = moved_ms
-                    log(f"    {model} b{batch:<3d} shuffles and concats "
-                        f"({len(moved)} copies): {moved_ms:.4f} ms, "
+                    log(f"    {model} b{batch:<3d} data movement outside the "
+                        f"kernels ({len(moved)} copies): {moved_ms:.4f} ms, "
                         f"{moved_ms / fwd_ms:.1%} of the forward")
                 for r in rows:
                     if "old_route_ms" in r:
@@ -827,7 +1138,7 @@ def main() -> int:
         kernels=kernels_line, per_shape=per_shape), indent=1))
     log("    per-shape times: chiprun_out/chip_smoke.json "
         "(kernel ms in the line below are summed over one batch-128 "
-        "forward of each path)")
+        "forward of each path; u8clamp's are the lifecycle phase's)")
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

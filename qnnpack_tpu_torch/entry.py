@@ -1,12 +1,14 @@
-"""Entry point: a quantized 224 forward on the GPU.
+"""Entry point: a quantized forward on the GPU.
 
 The counterpart of the repository's __graft_entry__.entry(): the same seed
-(0), the same config (224, fp32 requant) and the same example input, drawn
-from the builder's RNG after the weights, so the port's forward is
-comparable byte for byte with the JAX package's.  model="mobilenet_v2"
-(the default) is MobileNetV2 1.0_224; model="resnet18" is the zoo's
-ResNet-18 and model="shufflenet_v1_g3" its ShuffleNet v1 with 3 groups,
-both through the graph runtime, as bench_models.py builds them."""
+(0), the same config (fp32 requant) and the same example input, drawn from
+the builder's RNG after the weights, so the port's forward is comparable
+byte for byte with the JAX package's.  model="mobilenet_v2" (the default)
+is MobileNetV2 1.0_224; model="resnet18" is the zoo's ResNet-18 and
+model="shufflenet_v1_g3" its ShuffleNet v1 with 3 groups, both through the
+graph runtime at 224; model="bert_base_s128" is the int8 BERT-base encoder
+(12 layers, hidden 768, 12 heads, FFN 3072, sequence 128).  Each is built
+as bench_models.py builds it."""
 
 from __future__ import annotations
 
@@ -15,15 +17,23 @@ import torch
 
 from .device import resolve_device
 from .models import zoo
+from .models.bert import BertConfig, bert_encoder_forward, build_bert_encoder
 from .models.graph import graph_forward
 from .models.mobilenet_v2 import build_mobilenet_v2, mobilenet_v2_forward
 
-MODELS = ("mobilenet_v2", "resnet18", "shufflenet_v1_g3")
+MODELS = ("mobilenet_v2", "resnet18", "shufflenet_v1_g3", "bert_base_s128")
+
+
+def input_shape(model: str) -> tuple:
+    """Shape of one sample of `model`'s input (without the batch axis)."""
+    return (128, 768) if model == "bert_base_s128" else (224, 224, 3)
 
 
 def entry(device="cuda", model="mobilenet_v2"):
-    """(fn, example_args): fn(params, x) -> uint8 logits [1, 1000];
-    fn.spec is the model's static spec."""
+    """(fn, example_args): fn(params, x) -> the model's uint8 output for
+    the example input x: logits [1, 1000] for the image models (x uint8
+    [1, 224, 224, 3]), hidden states [1, 128, 768] for BERT (x uint8
+    [1, 128, 768]).  fn.spec is the model's static spec."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     if model == "mobilenet_v2":
@@ -37,9 +47,14 @@ def entry(device="cuda", model="mobilenet_v2"):
         params, spec = zoo.shufflenet_v1(rng, groups=3, requant="fp32",
                                          device=dev)
         forward = graph_forward
+    elif model == "bert_base_s128":
+        params, spec = build_bert_encoder(
+            rng, BertConfig(layers=12, hidden=768, heads=12, ffn=3072,
+                            seq_len=128, requant="fp32"), device=dev)
+        forward = bert_encoder_forward
     else:
         raise ValueError(f"unknown model {model!r}; expected one of {MODELS}")
-    x = torch.from_numpy(rng.integers(0, 256, (1, 224, 224, 3),
+    x = torch.from_numpy(rng.integers(0, 256, (1,) + input_shape(model),
                                       dtype=np.int64).astype(np.uint8)).to(dev)
 
     def fn(params, x):

@@ -1,5 +1,9 @@
-"""Quantized models: MobileNetV2, and the graph runtime with its zoo."""
+"""Quantized models: MobileNetV2, the graph runtime with its zoo, and the
+int8 BERT encoder."""
 
+from .bert import (  # noqa: F401
+    BertConfig, bert_encoder_forward, build_bert_encoder,
+)
 from .graph import (  # noqa: F401
     ConvSpec, GraphBuilder, GraphModel, GraphSpec, graph_forward,
     params_from_jax,

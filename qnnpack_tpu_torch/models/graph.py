@@ -13,14 +13,16 @@ weights, layer specs and requant params.  Tags run here:
     gap      (nn.pool.q8gavgpool: q8gavgpool kernel)
     add      residual add against a saved slot (q8vadd kernel)
     shuffle  channel shuffle (nn.elementwise.x8zip, a PyTorch copy)
+    lut      byte-wise table lookup (nn.elementwise.x8lut, a PyTorch index)
+    softargmax  (nn.elementwise.u8softargmax: u8rmax and u8lut32norm
+             kernels)
     save / load / concat / split / flatten / pad   data movement
 
 `graph_forward` keeps the JAX executor's one peephole: a concat of g
 equal-width slots followed by shuffle(g) is one interleaving copy.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item:
-the tags deconv, lut and softargmax, and the builder methods deconv and
-softargmax.
+Not ported yet, raising NotImplementedError with its ROADMAP item: the tag
+deconv and the builder method deconv.
 
 All activations share one synthetic quantization (scale 0.1, zp 128), so
 adds and concats need no rescale.
@@ -40,7 +42,8 @@ from torch import nn
 from ..device import resolve_device
 from ..kernels.vpu_ops import q8vadd_cuda
 from ..nn.conv import PackedConvWeights, pack_conv_weights, q8conv2d
-from ..nn.elementwise import x8zip
+from ..nn.elementwise import (build_softargmax_lut, lut32_tensor,
+                              u8softargmax, x8lut, x8zip)
 from ..nn.gemm import q8gemm
 from ..nn.packing import PackedGemmWeights, as_tensor, pack_gemm_weights
 from ..nn.pool import q8avgpool2d, q8gavgpool, u8maxpool2d
@@ -55,8 +58,6 @@ KERNEL_ZP = 128
 # What each unported tag waits for, by ROADMAP item.
 NOT_PORTED = {
     "deconv": "q8deconv2d (ROADMAP Queue 1 item 7)",
-    "lut": "x8lut (ROADMAP Queue 1 item 8)",
-    "softargmax": "u8softargmax (ROADMAP Queue 1 item 8, Queue 2 item 11)",
 }
 
 
@@ -192,8 +193,9 @@ class GraphBuilder:
     def shuffle(self, name, groups):
         self._emit("shuffle", name, groups)
 
-    def softargmax(self, name, *args, **kwargs):
-        raise _not_ported("softargmax")
+    def softargmax(self, name, channels, input_scale=ACT_SCALE):
+        self._emit("softargmax", name, lut32_tensor(
+            build_softargmax_lut(input_scale, channels), self.device))
 
     def finish(self, **meta):
         spec = GraphSpec(layers=self.layers, raw_weights=self.raw, meta=meta)
@@ -262,6 +264,11 @@ def _graph_layer(tag, payload, p, x, env):
         # Spatial constant pad with the tensor's zero point.
         (pt, pb), (pl_, pr), zp = payload
         x = F.pad(x, (0, 0, pl_, pr, pt, pb), value=zp)
+    elif tag == "lut":
+        # Per-element byte map (x8lut): QUANTIZE rescales, sigmoid, ...
+        x = x8lut(x, payload)
+    elif tag == "softargmax":
+        x = u8softargmax(x, payload)
     elif tag in NOT_PORTED:
         raise _not_ported(tag)
     else:

@@ -3,11 +3,18 @@
 QNNPACK's q8gemm contract (src/q8gemm/): uint8 activations x packed
 weights -> int32 accumulator with zero-point algebra -> fused
 requantization -> uint8.  `q8gemm` runs the CUDA kernel of
-kernels/q8gemm.py on GPU tensors and its plain version on CPU tensors.
+kernels/q8gemm.py on GPU tensors and its plain version on CPU tensors;
+`q8bmm`, the activation x activation product of attention, runs the kernel
+of kernels/q8bmm.py the same way.
+
+Not carried over: the TPU routing (`gemm_path`, `q8gemm_routed`) and the
+row-sum producer/consumer pair (`q8gemm_row_sums_out`, `q8gemm_presummed`),
+which ROADMAP Queue 1 item 11 keeps queued.
 """
 
 from __future__ import annotations
 
+from ..kernels.q8bmm import bmm_acc_plain, q8bmm_cuda
 from ..kernels.q8gemm import gemm_acc_plain, q8gemm_cuda
 from .packing import PackedGemmWeights
 
@@ -30,3 +37,26 @@ def q8gemm(a_u8, packed: PackedGemmWeights, rparams):
     y = q8gemm_cuda(a_u8.reshape(-1, a_u8.shape[-1]).contiguous(), packed,
                     rparams)
     return y.reshape(*lead, packed.n)
+
+
+def q8bmm_acc(a_u8, b_u8, a_zero_point: int, b_zero_point: int):
+    """Dynamic quantized matmul accumulator, both operands activations:
+    [..., M, K] x [..., K, N] -> [..., M, N], exactly sum_k (a - za)(b - zb)
+    (as an int64 tensor holding the wrapped int32 value)."""
+    return bmm_acc_plain(a_u8, b_u8, a_zero_point, b_zero_point)
+
+
+def q8bmm(a_u8, b_u8, a_zero_point: int, b_zero_point: int, rparams):
+    """Dynamic quantized batched matmul: uint8 [..., M, K] x uint8
+    [..., K, N] -> uint8 [..., M, N]; both operands have the same leading
+    axes, which are viewed as one batch axis."""
+    lead = a_u8.shape[:-2]
+    if b_u8.shape[:-2] != lead:
+        raise ValueError(f"leading axes differ: {tuple(a_u8.shape)} vs "
+                         f"{tuple(b_u8.shape)}")
+    m, k = a_u8.shape[-2:]
+    n = b_u8.shape[-1]
+    y = q8bmm_cuda(a_u8.reshape(-1, m, k).contiguous(),
+                   b_u8.reshape(-1, k, n).contiguous(), a_zero_point,
+                   b_zero_point, rparams)
+    return y.reshape(*lead, m, n)

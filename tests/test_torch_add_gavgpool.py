@@ -115,4 +115,5 @@ def test_cpu_wrappers_count_nothing():
     q8vadd_cuda(torch.from_numpy(u8(5)), torch.from_numpy(u8(5)), ap)
     assert tkernels.launch_counts() == {
         "q8gemm": 0, "q8dwconv": 0, "q8vadd": 0, "q8gavgpool": 0,
-        "q8conv": 0, "q8stem": 0, "u8maxpool": 0, "q8avgpool": 0}
+        "q8conv": 0, "q8stem": 0, "u8maxpool": 0, "q8avgpool": 0,
+        "q8bmm": 0, "u8rmax": 0, "u8lut32norm": 0, "u8clamp": 0}

@@ -3,8 +3,9 @@
 - A small graph over every ported tag (conv on all three conv kernels,
   gemm, maxpool, gap, add, save, load, concat, split, pad, flatten) gives
   the JAX graph_forward's bytes, under q31 and fp32 requant.
-- The unported tags (deconv, lut, softargmax) and builder methods raise
-  NotImplementedError.
+- A small graph with the lut and softargmax tags (and the builder's
+  softargmax) gives the JAX graph_forward's bytes.
+- The unported tag and builder method (deconv) raise NotImplementedError.
 - ResNet-18 at full width (32x32, batch 2) and SqueezeNet 1.1 (64x64) give
   the JAX forward's logits, through the port's builder and through
   params_from_jax; the ResNet-18 entry point at 224 does too, and the
@@ -62,6 +63,11 @@ def assert_same_spec(jspec, tspec):
         elif jt == "add":
             assert jl[0] == tl[0]
             assert dataclasses.asdict(jl[1]) == dataclasses.asdict(tl[1])
+        elif jt == "softargmax":
+            np.testing.assert_array_equal(tl.numpy().view(np.uint32),
+                                          np.asarray(jl))
+        elif jt == "lut":
+            np.testing.assert_array_equal(np.asarray(tl), np.asarray(jl))
         else:
             assert jl == tl
     assert jspec.meta == tspec.meta
@@ -128,6 +134,40 @@ def test_every_ported_tag_matches_jax(requant):
         tgraph.graph_forward(tp2, ts, torch.from_numpy(x)).numpy(), want)
 
 
+def lut_softargmax_graph(builder_cls, rng, requant, table, **kw):
+    """lut and softargmax over the channels of NHWC activations and over
+    logits: 2x9x9x3 in, [2, 10] out."""
+    g = builder_cls(rng, requant, **kw)
+    g.conv("stem", 3, 8, strides=(2, 2), act="relu")         # 5x5x8
+    g._emit("lut", "sigmoid", table)
+    g.softargmax("sm_channels", 8)
+    g.gap("gap", 5)
+    g.fc("fc", 8, 10)
+    g.softargmax("sm_logits", 10, input_scale=0.25)
+    return g.finish(name="lut_softargmax")
+
+
+@pytest.mark.parametrize("requant", ["q31", "fp32"])
+def test_lut_and_softargmax_tags_match_jax(requant):
+    from qnnpack_tpu.nn.elementwise import build_sigmoid_lut
+    table = build_sigmoid_lut(140, 0.1)
+    jp, js = lut_softargmax_graph(jgraph.GraphBuilder,
+                                  np.random.default_rng(23), requant, table)
+    tp, ts = lut_softargmax_graph(tgraph.GraphBuilder,
+                                  np.random.default_rng(23), requant, table,
+                                  device="cpu")
+    assert_same_spec(js, ts)
+    assert {t for t, _, _ in ts.layers} == {"conv", "lut", "softargmax",
+                                            "gap", "gemm"}
+    x = images(24, (2, 9, 9, 3))
+    want = jax_forward(jp, js, x)
+    tkernels.reset_launch_counts()
+    got = tgraph.graph_forward(tp, ts, torch.from_numpy(x))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (2, 10)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert set(tkernels.launch_counts().values()) == {0}
+
+
 @pytest.mark.parametrize("tag", sorted(tgraph.NOT_PORTED))
 def test_unported_tags_raise(tag):
     g = tgraph.GraphBuilder(np.random.default_rng(0), device="cpu")
@@ -138,7 +178,7 @@ def test_unported_tags_raise(tag):
                                                        dtype=torch.uint8))
 
 
-@pytest.mark.parametrize("method", ["deconv", "softargmax"])
+@pytest.mark.parametrize("method", ["deconv"])
 def test_unported_builder_methods_raise(method):
     g = tgraph.GraphBuilder(np.random.default_rng(0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -21,9 +21,11 @@ import pytest
 import torch
 
 from qnnpack_tpu_torch import kernels as tkernels
+from qnnpack_tpu_torch import ops as tops
 from qnnpack_tpu_torch.device import resolve_device
 from qnnpack_tpu_torch.entry import entry
 from qnnpack_tpu_torch.kernels import _build
+from qnnpack_tpu_torch.models import bert as tbert
 from qnnpack_tpu_torch.models import graph as tgraph
 from qnnpack_tpu_torch.models import mobilenet_v2 as tm
 from qnnpack_tpu_torch.models import zoo as tzoo
@@ -85,6 +87,30 @@ def test_shufflenet_entry_and_zoo_raise_without_gpu(no_gpu):
             builder(np.random.default_rng(0))
 
 
+def test_bert_entry_and_builder_raise_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        entry(model="bert_base_s128")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tbert.build_bert_encoder(np.random.default_rng(0),
+                                 tbert.BertConfig(layers=1))
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("Add", dict(a_zero_point=0, a_scale=1.0, b_zero_point=0, b_scale=1.0,
+                 sum_zero_point=0, sum_scale=1.0)),
+    ("Clamp", {}),
+    ("Sigmoid", dict(input_zero_point=0, input_scale=0.1)),
+    ("LeakyReLU", dict(negative_slope=0.1, input_zero_point=0,
+                       input_scale=0.1, output_zero_point=0,
+                       output_scale=0.1)),
+    ("SoftArgMax", dict(channels=8, input_scale=0.1)),
+    ("ChannelShuffle", dict(groups=2, group_channels=4))])
+def test_operators_default_to_gpu_and_raise_without_one(no_gpu, name,
+                                                        kwargs):
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        getattr(tops, name)(**kwargs)
+
+
 def test_builder_model_and_server_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tm.build_mobilenet_v2(np.random.default_rng(0), input_size=32)
@@ -105,7 +131,8 @@ def test_cpu_forward_launches_no_kernel():
     assert tuple(y.shape) == (2, 10)
     assert tkernels.launch_counts() == {
         "q8gemm": 0, "q8dwconv": 0, "q8vadd": 0, "q8gavgpool": 0,
-        "q8conv": 0, "q8stem": 0, "u8maxpool": 0, "q8avgpool": 0}
+        "q8conv": 0, "q8stem": 0, "u8maxpool": 0, "q8avgpool": 0,
+        "q8bmm": 0, "u8rmax": 0, "u8lut32norm": 0, "u8clamp": 0}
 
 
 def test_cpu_resnet18_forward_launches_no_kernel():
@@ -144,13 +171,14 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 
 def test_four_kernels_with_no_library_calls():
-    """The eight kernel sources (four of the first slice, three of the
-    second, q8avgpool of the third) and their shared headers call no
-    library."""
+    """The twelve kernel sources (four of the first slice, three of the
+    second, q8avgpool of the third, q8bmm, u8rmax, u8lut32norm and u8clamp
+    of the fourth) and their shared headers call no library."""
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["q8avgpool.cu", "q8conv.cu", "q8dwconv.cu",
+    assert names == ["q8avgpool.cu", "q8bmm.cu", "q8conv.cu", "q8dwconv.cu",
                      "q8gavgpool.cu", "q8gemm.cu", "q8stem.cu", "q8vadd.cu",
-                     "u8maxpool.cu"]
+                     "u8clamp.cu", "u8lut32norm.cu", "u8maxpool.cu",
+                     "u8rmax.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == \
         ["igemm_tile.cuh", "requant.cuh"]
     for p in _build.CSRC.iterdir():
