@@ -16,8 +16,10 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
      of the same inputs, at the main paths' shapes plus kzp != 128, q31,
      precise, gemmlowp, per-channel, ragged-channel, odd-size, grouped
      (g = 2, 3, 4, 8), izp != 128, all three q8bmm zero-point cases, odd N
-     and rows off a 4-byte boundary: torch.equal, zero tolerance (the
-     integer math is exact);
+     and rows off a 4-byte boundary; for q8gemm and q8conv every block
+     shape and split-K plan of kernels/q8gemm.py:tile_plan (each must be
+     exercised), K = 1 to 70,000 (sums past 2^31), bases 8 bytes off 16:
+     torch.equal, zero tolerance (the integer math is exact);
   3. for each model, batch 1: the forward on the card must equal the plain
      CPU forward byte for byte (logits [1, 1000] for the image models,
      hidden states [1, 128, 768] for BERT, not constant);
@@ -54,16 +56,17 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
      torch.amax on uint8 for u8rmax; none for q8vadd (no one call computes
      add_quantize's two rescales and clamp) and u8lut32norm (no one call
      does the table lookup, the row sum and the uint32 divide).  Each
-     launch's output must equal its plain version's.  The MobileNetV2
-     stem's old route (im2col + q8gemm) is timed beside q8stem at its
-     shape, and the data movement outside the kernels (the channel
+     launch's output must equal its plain version's; each q8gemm and
+     q8conv row also holds its plan, TOP/s and share of its bound.  The
+     MobileNetV2 stem's old route (im2col + q8gemm) is timed beside q8stem
+     at its shape, and the data movement outside the kernels (the channel
      shuffles and concats, BERT's head transposes) as a sum per forward.
 
 Prints the {"kernels": [...]} line (launches over one batch-1 forward of
 each path, times summed over one batch-128 forward of each path; u8clamp's
 over the lifecycle run and the 128x56x56x96 tensor), the nvidia-smi line
-and, last, {"ok": true, "device": {...}}.  Per-shape timings go to
-chiprun_out/chip_smoke.json.
+and, last, {"ok": true, "device": {...}}.  Per-shape timings, nvcc's time
+and the ptxas lines go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -139,6 +142,29 @@ def log(msg):
     print(msg, flush=True)
 
 
+def gemm_plan(m, n, k, groups, sms):
+    """The q8gemm wrapper's (tile, splits, steps per split) for M x K x N."""
+    from qnnpack_tpu_torch.kernels.q8gemm import tile_plan
+    from qnnpack_tpu_torch.nn.packing import K_STEP, round_up
+    return tile_plan(m, n, round_up(k) // K_STEP, groups, sms)
+
+
+def conv_plan(p, m, sms):
+    """The q8conv wrapper's plan for packed conv `p` over M output pixels."""
+    from qnnpack_tpu_torch.kernels.q8conv import conv_steps
+    from qnnpack_tpu_torch.kernels.q8gemm import tile_plan
+    steps, deep = conv_steps(p)
+    return tile_plan(m, p.group_output_channels, steps, p.groups, sms, deep)
+
+
+def plan_tag(plan):
+    from qnnpack_tpu_torch.kernels.q8gemm import DEEP_TILE, TILES
+    tile, splits, _ = plan
+    bm, bn = TILES[tile]
+    return (f"[{bm}x{bn}" + (" deep" if tile == DEEP_TILE else "")
+            + (f", split {splits}]" if splits > 1 else "]"))
+
+
 # ---------------------------------------------------------------- timing
 def time_ms(fn, torch, repeats=5, queued=True):
     """Median ms per call over `repeats` CUDA-event windows, after warm-up.
@@ -192,6 +218,7 @@ def compare(torch, err, name, label, got, want, quiet=False):
 def check_kernels(torch, err):
     """Each kernel vs its plain version on CPU copies of the same inputs."""
     from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.kernels._build import out_dims
     from qnnpack_tpu_torch.nn.conv import pack_conv_weights
     from qnnpack_tpu_torch.nn.elementwise import (build_softargmax_lut,
                                                   lut32_tensor)
@@ -203,6 +230,7 @@ def check_kernels(torch, err):
 
     rng = np.random.default_rng(1234)
     cuda = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     relu6 = dict(qmin=128, qmax=188)
 
     def u8(*shape):
@@ -210,6 +238,13 @@ def check_kernels(torch, err):
 
     def check(name, label, got, want):
         compare(torch, err, name, label, got, want)
+
+    def placed(x, offset):
+        """`x` on the card at `offset` bytes past an aligned allocation."""
+        buf = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        return view
 
     def rparams(scheme, n, rkw):
         if scheme == "pc":
@@ -232,6 +267,34 @@ def check_kernels(torch, err):
         ("ragged 1x1->1", 1, 1, 1, 121, 103, "fp32", {}),
         ("ragged kzp 77, q31 67x961->65", 67, 961, 65, 3, 77, "q31", {}),
     ]
+    # The tensor-core tile's edges (csrc/imma_tile.cuh): K = 1, 16, 24 (8-byte
+    # copies), 77 (byte copies); K deeper than the ring; M < 16, 49, 128;
+    # N = 1, 20, 65; each block shape and split-K (the plan is logged);
+    # kzp != 128 under all five schemes, with and without split-K.
+    gemm_cases += [
+        ("K=24 8-byte copies 3136x24->144", 3136, 24, 144, 128, 128,
+         "fp32", relu6),
+        ("M=5 N=20 K=16", 5, 16, 20, 121, 103, "q31", {}),
+        ("bert ffn2 b1 128x3072->768 (split-K)", 128, 3072, 768, 128, 128,
+         "fp32", {}),
+        ("bert qkv b8 1024x768->2304", 1024, 768, 2304, 128, 128, "fp32",
+         {}),
+        ("bert out b128 16384x768->768 (128x128 deep)", 16384, 768, 768,
+         128, 128, "fp32", {}),
+        ("16384x320->256 (128x128)", 16384, 320, 256, 121, 103, "q31", {}),
+        ("K=960 deep, ragged last stage 16384x960->144", 16384, 960, 144,
+         128, 128, "fp32", relu6),
+        ("49x4608->65 kzp 90 gemmlowp (split-K, row sums)", 49, 4608, 65,
+         7, 90, "gemmlowp", {}),
+        ("128x3072->1 kzp 200 precise", 128, 3072, 1, 250, 200, "precise",
+         {}),
+        ("kzp 140, fp32 200x96->20", 200, 96, 20, 3, 140, "fp32", {}),
+        ("per-channel kzp 60 split-K 64x2048->200", 64, 2048, 200, 121, 60,
+         "pc", {}),
+        ("q31 kzp 10 N=65 K=77 4000 rows", 4000, 77, 65, 250, 10, "q31",
+         {}),
+    ]
+    plans = set()
     for label, m, k, n, izp, kzp, scheme, rkw in gemm_cases:
         kernel, bias = u8(n, k), rng.integers(-9000, 9000, n).astype(np.int32)
         rp = rparams(scheme, n, rkw)
@@ -240,7 +303,37 @@ def check_kernels(torch, err):
                               rp)
         got = K.q8gemm_cuda(a.to(cuda), pack_gemm_weights(
             kernel, bias, izp, kzp, device=cuda), rp)
-        check("q8gemm", label, got, want)
+        plan = gemm_plan(m, n, k, 1, sms)
+        plans.add(("q8gemm", plan[0], plan[1] > 1))
+        check("q8gemm", f"{label} {plan_tag(plan)}", got, want)
+
+    # A base address 8 bytes off a 16-byte boundary (8-byte copies).
+    kernel = u8(96, 144)
+    a = torch.from_numpy(u8(500, 144))
+    check("q8gemm", "base + 8 bytes 500x144->96 (8-byte copies)",
+          K.q8gemm_cuda(placed(a, 8), pack_gemm_weights(
+              kernel, None, 121, 103, device=cuda), rparams("q31", 96, {})),
+          K.q8gemm_plain(a, pack_gemm_weights(kernel, None, 121, 103),
+                         rparams("q31", 96, {})))
+
+    # K = 70,000 with every product at an extreme: each column's sum passes
+    # +-2^31, so the int32 chains must wrap, not saturate; the plan splits
+    # K past 65,536 and adds the parts in uint32.  A scale of 2^-25 keeps
+    # the outputs off the clamp, so a wrong accumulator shows.
+    m, k, n = 1088, 70000, 256
+    kernel = np.zeros((n, k), np.uint8)
+    kernel[1::2] = 255
+    a = torch.full((m, k), 255, dtype=torch.uint8)
+    a[1::3] = torch.from_numpy(u8(len(range(1, m, 3)), k))
+    rp = make_requant_params("fp32", 2.0**-25, 128)
+    plan = gemm_plan(m, n, k, 1, sms)
+    if plan[1] < 2:
+        raise AssertionError(f"K = {k} not split: {plan}")
+    check("q8gemm", f"K=70000 extremes, wrap mod 2^32 {plan_tag(plan)}",
+          K.q8gemm_cuda(a.to(cuda), pack_gemm_weights(
+              kernel, None, 255, 0, device=cuda), rp),
+          K.q8gemm_plain(a, pack_gemm_weights(kernel, None, 255, 0), rp))
+    del a, kernel
 
     # q8conv: (label, B, H, W, C, O, k, stride, padding, dilation, izp,
     # kzp, scheme, rp kwargs)
@@ -269,6 +362,16 @@ def check_kernels(torch, err):
         ("ragged C=20 K=180 5x5 s1 11x9->65", 1, 11, 9, 20, 65, 3, 1, p1,
          1, 3, 77, "q31", {}),
     ]
+    conv_cases += [
+        ("b32 3x3 28x28x128->128 (128x128 deep)", 32, 28, 28, 128, 128, 3,
+         1, p1, 1, 121, 103, "fp32", relu6),
+        ("b32 3x3 s2 56x56x64->128 (128x128)", 32, 56, 56, 64, 128, 3, 2, s2,
+         1, 128, 128, "fp32", relu6),
+        ("s3 3x3 7x7x512 kzp 90 per-channel (split-K, row sums)", 1, 7, 7,
+         512, 512, 3, 1, p1, 1, 121, 90, "pc", {}),
+        ("C=7 O=1 5x5 izp 250 kzp 0 q31", 2, 9, 10, 7, 1, 5, 1,
+         ((2, 2), (2, 2)), 1, 250, 0, "q31", {}),
+    ]
     for (label, bsz, h, w, c, o, k, s, pad, d, izp, kzp, scheme,
          rkw) in conv_cases:
         kernel = u8(o, k, k, c)
@@ -276,11 +379,23 @@ def check_kernels(torch, err):
         rp = rparams(scheme, o, rkw)
         a = torch.from_numpy(u8(bsz, h, w, c))
         args = dict(strides=(s, s), padding=pad, dilation=(d, d))
-        want = K.q8conv_plain(a, pack_conv_weights(kernel, bias, izp, kzp),
-                              rp, **args)
+        packed = pack_conv_weights(kernel, bias, izp, kzp)
+        want = K.q8conv_plain(a, packed, rp, **args)
         got = K.q8conv_cuda(a.to(cuda), pack_conv_weights(
             kernel, bias, izp, kzp, device=cuda), rp, **args)
-        check("q8conv", label, got, want)
+        ho, wo = out_dims(h, w, k, k, (s, s), pad, (d, d))
+        plan = conv_plan(packed, bsz * ho * wo, sms)
+        plans.add(("q8conv", plan[0], plan[1] > 1))
+        check("q8conv", f"{label} {plan_tag(plan)}", got, want)
+
+    # An input 8 bytes off a 16-byte boundary (8-byte copies of 64 channels).
+    kernel, a = u8(64, 3, 3, 64), torch.from_numpy(u8(2, 14, 14, 64))
+    check("q8conv", "base + 8 bytes 3x3 pad 1 14x14x64 izp 121 kzp 103",
+          K.q8conv_cuda(placed(a, 8), pack_conv_weights(
+              kernel, None, 121, 103, device=cuda), rparams("q31", 64, {}),
+              padding=p1),
+          K.q8conv_plain(a, pack_conv_weights(kernel, None, 121, 103),
+                         rparams("q31", 64, {}), padding=p1))
 
     # grouped q8conv: (label, B, H, W, groups, Icpg, Ocpg, k, stride,
     # padding, izp, kzp, scheme, rp kwargs); the ShuffleNet v1 g3 shapes,
@@ -321,6 +436,14 @@ def check_kernels(torch, err):
          121, 77, "q31", {}),
         ("g2 3x3 s2 pad(0,1) izp 7 Icpg 40", 1, 13, 12, 2, 40, 70, 3, 2, s2,
          7, 128, "fp32", {}),
+        ("g3 3x3 pad 1 izp 121 Icpg 20 (4-byte copies)", 2, 10, 9, 3, 20,
+         24, 3, 1, p1, 121, 103, "gemmlowp", {}),
+        ("g2 3x3 pad 1 izp 250 Icpg 40 (8-byte copies)", 1, 12, 11, 2, 40,
+         65, 3, 1, p1, 250, 128, "precise", {}),
+        ("g3 st1_g2 b128 14x14 40->160", 128, 14, 14, 3, 40, 160, 1, 1, p0,
+         128, 128, "fp32", {}),
+        ("g3 st0_g1 b128 28x28 80->20 (128x64)", 128, 28, 28, 3, 80, 20, 1,
+         1, p0, 128, 128, "fp32", {"qmin": 128}),
     ]
     for (label, bsz, h, w, g, icpg, ocpg, k, s, pad, izp, kzp, scheme,
          rkw) in grouped_cases:
@@ -329,11 +452,21 @@ def check_kernels(torch, err):
         rp = rparams(scheme, g * ocpg, rkw)
         a = torch.from_numpy(u8(bsz, h, w, g * icpg))
         args = dict(strides=(s, s), padding=pad)
-        want = K.q8conv_plain(
-            a, pack_conv_weights(kernel, bias, izp, kzp, g), rp, **args)
+        packed = pack_conv_weights(kernel, bias, izp, kzp, g)
+        want = K.q8conv_plain(a, packed, rp, **args)
         got = K.q8conv_cuda(a.to(cuda), pack_conv_weights(
             kernel, bias, izp, kzp, g, device=cuda), rp, **args)
-        check("q8conv", label, got, want)
+        ho, wo = out_dims(h, w, k, k, (s, s), pad)
+        plan = conv_plan(packed, bsz * ho * wo, sms)
+        plans.add(("q8conv", plan[0], plan[1] > 1))
+        check("q8conv", f"{label} {plan_tag(plan)}", got, want)
+    # Split-K serves only launches that fill under half the SMs, which
+    # run the 64 x 64 shape (or a K past 65,536, checked above).
+    want_plans = {(name, tile, tile == 2 and split)
+                  for name in ("q8gemm", "q8conv") for tile in range(4)
+                  for split in (False, True)}
+    if not want_plans <= plans:
+        raise AssertionError(f"plans not covered: {want_plans - plans}")
 
     # q8stem (stride 2, kzp 128): (label, B, H, W, C, O, k, padding, izp,
     # scheme, rp kwargs)
@@ -480,13 +613,6 @@ def check_kernels(torch, err):
               K.q8bmm_cuda(a.to(cuda), b.to(cuda), za, zb, rp),
               K.q8bmm_plain(a, b, za, zb, rp))
 
-    def placed(x, offset):
-        """`x` on the card at `offset` bytes past an aligned allocation."""
-        buf = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda)
-        view = buf[offset:].view(x.shape)
-        view.copy_(x)
-        return view
-
     # u8rmax and u8lut32norm: (label, R, N, offset of the rows, scale);
     # BERT's score rows, odd N (rows off the 4-byte boundary), rows of 0
     # and of 255, and base pointers off by one and two bytes.
@@ -616,6 +742,7 @@ def bert_calls(torch, params, spec, x):
     def gemm(name, a2, p, rp):
         m, k = a2.shape
         return dict(kernel="q8gemm", label=f"{name} {m}x{k}->{p.n}",
+                    plan=plan_tag(gemm_plan(m, p.n, k, 1, sms)),
                     run=lambda: K.q8gemm_cuda(a2, p, rp),
                     plain=lambda: K.q8gemm_plain(a2, p, rp),
                     library=int_mm_yardstick(torch, a2, p.w),
@@ -645,6 +772,7 @@ def bert_calls(torch, params, spec, x):
         return dict(kernel="transpose", label=f"{name} {tuple(t.shape)}",
                     run=fn, bytes=2 * t.numel())
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     lut = spec["softargmax_lut"]
     for i, layer in enumerate(params):
         resid = x
@@ -719,6 +847,7 @@ def kernel_calls(torch, model, params, spec, x):
     if model == "bert_base_s128":
         yield from bert_calls(torch, params, spec, x)
         return
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for tag, name, layer, p, a, other in traced_inputs(model, params, spec,
                                                        x):
         if tag == "add":
@@ -774,6 +903,7 @@ def kernel_calls(torch, model, params, spec, x):
             a2 = a.reshape(-1, a.shape[-1])
             m, k = a2.shape
             yield dict(kernel="q8gemm", label=f"{name} {m}x{k}->{p.n}",
+                       plan=plan_tag(gemm_plan(m, p.n, k, 1, sms)),
                        run=lambda a2=a2, p=p, l=layer: K.q8gemm_cuda(
                            a2, p, l.rparams),
                        plain=lambda a2=a2, p=p, l=layer: K.q8gemm_plain(
@@ -812,27 +942,32 @@ def kernel_calls(torch, model, params, spec, x):
                 cols, _ = im2col(a, p, layer.strides, layer.padding)
                 library = int_mm_yardstick(torch, cols, p.as_gemm().w)
                 del cols
+            old_route = plan = None
             if kernel == "q8stem":
                 run = (lambda a=a, p=p, l=layer: K.q8stem_cuda(
                     a, p, l.rparams, l.padding))
                 plain = (lambda a=a, p=p, l=layer: K.q8stem_plain(
                     a, p, l.rparams, l.padding))
+                # The GEMM form of the weights is packed here, outside the
+                # timed window, as a model would pack it once.
+                old_route = (lambda a=a, g=p.as_gemm(), p=p, l=layer:
+                             K.q8gemm_cuda(im2col(a, p, l.strides,
+                                                  l.padding)[0], g,
+                                           l.rparams))
             else:
                 run = (lambda a=a, p=p, l=layer: K.q8conv_cuda(
                     a, p, l.rparams, l.strides, l.padding))
                 plain = (lambda a=a, p=p, l=layer: K.q8conv_plain(
                     a, p, l.rparams, l.strides, l.padding))
+                plan = plan_tag(conv_plan(p, m, sms))
             yield dict(
                 kernel=kernel,
                 label=f"{name} {tuple(a.shape)} {p.kernel_height}x"
                       f"{p.kernel_width} s{layer.strides[0]} g{p.groups} "
                       f"->{o}",
-                run=run, plain=plain, library=library,
+                plan=plan, run=run, plain=plain, library=library,
                 bytes=a.numel() + p.w.numel() + 4 * o + m * o,
-                ops=2 * m * o * k,
-                old_route=(lambda a=a, p=p, l=layer: K.q8gemm_cuda(
-                    im2col(a, p, l.strides, l.padding)[0], p.as_gemm(),
-                    l.rparams)) if kernel == "q8stem" else None)
+                ops=2 * m * o * k, old_route=old_route)
 
 
 def time_main_path(torch, model, params, spec, x, err, plain_repeats):
@@ -857,6 +992,12 @@ def time_main_path(torch, model, params, spec, x, err, plain_repeats):
                                if call["library"] is not None else None))
         if call.get("old_route") is not None:
             row["old_route_ms"] = time_ms(call["old_route"], torch)
+        if call["kernel"] in ("q8gemm", "q8conv"):
+            bound_ms = max(row["bytes"] / HBM_BYTES_PER_S,
+                           row["ops"] / INT8_OPS_PER_S) * 1e3
+            row.update(plan=call["plan"],
+                       tops=row["ops"] / (row["ms"] * 1e-3) / 1e12,
+                       bound_share=bound_ms / row["ms"])
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
@@ -996,9 +1137,11 @@ def main() -> int:
     _build.load_library()
     log(f"    kernels built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds:.1f} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "---" in line:
-            log(f"    ptxas: {line.strip()}")
+    ptxas = [line.strip() for line in _build.build_log.splitlines()
+             if "registers" in line or "spill" in line or "---" in line
+             or "Compiling entry" in line]
+    for line in ptxas:
+        log(f"    ptxas: {line}")
 
     log("[2] kernels against their plain versions (CPU copies, torch.equal)")
     max_err = {name: 0 for name in K.KERNELS}
@@ -1133,7 +1276,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        forward=forward, launches_per_forward=launches,
+        nvcc_seconds=_build.build_seconds, ptxas=ptxas, forward=forward,
+        launches_per_forward=launches,
         served_batches=served_batches, served_p50_ms=latency,
         kernels=kernels_line, per_shape=per_shape), indent=1))
     log("    per-shape times: chiprun_out/chip_smoke.json "

@@ -35,14 +35,15 @@ _F = ctypes.c_float
 
 # argtypes of every C entry point; each returns a cudaError_t as int.
 SIGNATURES = {
-    "qnn_q8gemm": [_I, _P, _P, _P, _P, _P, _I64, _I, _I, _I,
+    "qnn_q8gemm": [_I, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                   _I, _I, _I, _P, _P,
                    _I, _I, _I, _I, _I, _I, _F, _P],
     "qnn_q8dwconv": [_I, _P, _P, _P, _P, _P] + [_I] * 16
                     + [_I] * 6 + [_F, _P],
     "qnn_q8vadd": [_I, _P, _P, _P, _I64] + [_I] * 7 + [_P],
     "qnn_q8gavgpool": [_I, _P, _P] + [_I] * 9 + [_P],
-    "qnn_q8conv": [_I, _P, _P, _P, _P, _P] + [_I] * 18
-                  + [_I] * 6 + [_F, _P],
+    "qnn_q8conv": [_I, _P, _P, _P, _P, _P] + [_I] * 19
+                  + [_I, _I, _I, _P, _P] + [_I] * 6 + [_F, _P],
     "qnn_q8stem": [_I, _P, _P, _P, _P, _P] + [_I] * 12
                   + [_I] * 6 + [_F, _P],
     "qnn_u8maxpool": [_I, _P, _P] + [_I] * 16 + [_P],

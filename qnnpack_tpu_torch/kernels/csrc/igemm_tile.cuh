@@ -1,4 +1,6 @@
-// The 64 x 64 int8 output tile shared by q8gemm.cu and q8conv.cu.
+// The 64 x 64 __dp4a tile of q8bmm.cu, its only user (q8gemm.cu and
+// q8conv.cu run on the tensor-core tile of imma_tile.cuh; moving q8bmm onto
+// it is queued work).
 //
 // A block of 256 threads owns a 64 x 64 tile of the output; each thread
 // holds 4 x 4 int32 accumulators (rows ty + 16 i, columns tx + 16 j) and,

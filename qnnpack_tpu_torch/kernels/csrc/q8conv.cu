@@ -1,171 +1,249 @@
 // q8conv: dense or grouped convolution as an implicit GEMM,
-// uint8 NHWC [B, H, W, G*Icpg] x biased-int8 HWIO [Kh, Kw, Icpg, G*Ocpg]
-// -> uint8 NHWC [B, Ho, Wo, G*Ocpg].
+// uint8 NHWC [B, H, W, G*Icpg] x biased-int8 weights -> uint8 NHWC
+// [B, Ho, Wo, G*Ocpg].
 //
 // Replaces the TPU kernel qnnpack_tpu/kernels/q8conv.py:q8conv_pallas (body
 // _q8conv_kernel), which runs a dense conv as Kh*Kw per-tap MXU products over
 // phase planes, and the grouped branches of qnnpack_tpu/nn/conv.py:
 // q8conv2d_acc (split, einsum and feature_group_count), which the JAX
-// package leaves to XLA.  Here group g (blockIdx.z) is one GEMM with
+// package leaves to XLA.  Here group g is one GEMM with
 //
-//   M = B*Ho*Wo output pixels, N = Ocpg, K = Kh*Kw*Icpg in the pack's
-//   [kh, kw, c] order
-//   acc[m, n] = sum_k A'[m, k] W'[k, g*Ocpg + n] - kzp' * sum_k A'[m, k]
-//               + bias'[g*Ocpg + n]
+//   M = B*Ho*Wo output pixels, N = Ocpg, K = Kh*Kw*Icpg in [kh, kw, c] order
+//   acc[m, n] = sum_k A[m, k] W'[k, g*Ocpg + n] + c[g*Ocpg + n]
+//               - kzp' * sum_k A[m, k]                         (mod 2^32)
 //   out[m, g*Ocpg + n] = requantize(acc[m, n])   (any scheme, in registers)
 //
-// and the A tile is gathered from NHWC by (b, oy, ox) x (ky, kx, g*Icpg + c)
-// as it is loaded: no im2col matrix exists.  The row sum runs over the
-// group's own channels, as the JAX package's per-group window sums do.  A tap
-// outside the image reads the biased input zero point, the value the
-// zero-point padding of nn/conv.py puts there, so it enters the product and
-// the row sum as the folded bias expects (count = Kh*Kw*Icpg).  The K loop
-// runs over taps, then over the group's channels in steps of 32, so a step
-// never straddles two taps and each loader thread finds its input pixel once
-// per tap; channels past Icpg in a tap's last step hold biased 0 and meet
-// zero weights.  G = 1 is the dense conv.
+// with c folded at pack time (nn/conv.py), and the A tile gathered from
+// NHWC by (b, oy, ox) x (ky, kx, g*Icpg + c) as it is loaded: no im2col
+// matrix exists.  The weights come K-major, [G*Ocpg, Kh*Kw, Icpg_p] with
+// Icpg_p = Icpg rounded up to the 64-byte K step and zeros past Icpg.  The
+// K loop runs over taps, then over the group's channels in stages of 64
+// (or 128) bytes, so a stage never straddles two taps.  Three kinds of A chunk:
+//   - inside the image: cp.async of 16, 8 or 4 bytes, the widest that Icpg
+//     and the base address allow (plain byte copies for Icpg = 3, 5, 7...);
+//   - outside the image: the raw input zero point, stored with st.shared,
+//     the value the zero-point padding of nn/conv.py puts there and that
+//     the folded bias counts (K = Kh*Kw*Icpg) - cp.async's zero fill would
+//     give 0;
+//   - channels past Icpg in a tap's last step: raw 0, which meets zero
+//     weights and adds nothing to the row sum.
+// The group is blockIdx.z / splits.  G = 1 is the dense conv.
 //
 // What bounds it: the ResNet-18 bodies have K = 576..4608, far above the
-// int8 ridge, so they are bound by operations (1,979 TOP/s on the int8
-// tensor cores); ShuffleNet's grouped 1x1 layers (K = 20..320 per group) are
-// bound by bytes.  Design: the 64 x 64 tile of igemm_tile.cuh, as in q8gemm
-// (__dp4a on the CUDA cores, the row sum for kzp != 128 beside it), with
-// 8-byte vector loads of A when Icpg % 8 == 0 (so every group's channel base
-// is 8-byte aligned).  It sits far from the tensor-core bound, and a group
-// narrower than 64 columns leaves part of each tile idle; mma.sync / wgmma
-// and narrower tiles are work for a later change.
+// int8 ridge, so they are bound by the tensor cores; ShuffleNet's grouped
+// 1x1 layers (K = 20..320 a group) are bound by bytes.  Design: the
+// tensor-core tile of imma_tile.cuh, as in q8gemm (u8 x s8 mma.sync fed by
+// ldmatrix from a cp.async ring, four block shapes and split-K picked by
+// the wrapper; 128-byte stages only where Icpg_p holds whole ones); a table
+// of each block row's window origin in shared memory, so any copy width
+// finds its pixel without a divide.  TMA cannot gather this tile: its
+// out-of-bounds fill is 0, not the zero point.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "igemm_tile.cuh"
+#include "imma_tile.cuh"
 
 namespace {
 
-using qnn::kTileK;
-using qnn::kTileM;
-using qnn::kTileN;
-using qnn::kTileRow;
-using qnn::kTileThreads;
+namespace im = qnn::imma;
 
-struct ConvShape {
-  int batch, height, width, channels;        // channels = groups * Icpg
-  int out_height, out_width, out_channels;   // out_channels = groups * Ocpg
-  int group_channels, group_out_channels;    // Icpg, Ocpg
-  int kernel_h, kernel_w;
-  int stride_h, stride_w;
-  int pad_top, pad_left;
-  int dil_h, dil_w;
+constexpr int kOutside = -(1 << 29);  // window origin of a row past M
+
+struct ConvArgs {
+  const uint8_t* a;
+  const int8_t* w;  // K-major [G*Ocpg, Kh*Kw, icpg_p]
+  const int32_t* bias_c;
+  const float* scales;
+  uint8_t* out;
+  int batch, height, width, channels;       // channels = groups * icpg
+  int out_height, out_width, out_channels;  // out_channels = groups * ocpg
+  int icpg, ocpg, icpg_p;
+  int kernel_h, kernel_w, stride_h, stride_w, pad_top, pad_left, dil_h,
+      dil_w;
+  int izp, kzp_biased, copy_w;
+  qnn::Requant rp;
+  im::Split sp;
 };
 
-__global__ void __launch_bounds__(kTileThreads)
-    q8conv_kernel(const uint8_t* __restrict__ a, const int8_t* __restrict__ w,
-                  const int32_t* __restrict__ bias,
-                  const float* __restrict__ scales, uint8_t* __restrict__ out,
-                  ConvShape s, int izp_biased, int kzp_biased, bool vec8,
-                  qnn::Requant rp) {
-  __shared__ __align__(16) int8_t as[kTileM][kTileRow];
-  __shared__ __align__(16) int8_t ws[kTileN][kTileRow];
+// Each block row's window origin (iy0, ix0) and image base pixel b*H*W.
+struct RowTable {
+  const int* iy0;
+  const int* ix0;
+  const int* base;
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int64_t m = static_cast<int64_t>(s.batch) * s.out_height *
-                    s.out_width;
-  const int n = s.group_out_channels;
-  const int c_in = s.group_channels;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kTileM;
-  const int n0 = blockIdx.y * kTileN;
-  const int group = blockIdx.z;
-  const int w_col0 = group * n;  // the group's first column of W and out
-
-  qnn::TileAcc t;
-  qnn::tile_zero(t);
-
-  // Loader coordinates: A tile 64 pixels x 32 channels, 8 channels of one
-  // pixel per thread; W tile 32 k-rows x 64 columns, 8 columns per thread.
-  const int a_row = tid / 4;
-  const int a_col = (tid % 4) * 8;
-  const int w_row = tid / 8;
-  const int w_col = (tid % 8) * 8;
-
-  // This thread's output pixel: its window origin, and its image from the
-  // group's first channel on.
-  const int64_t a_gm = m0 + a_row;
-  const bool row_valid = a_gm < m;
-  int iy0 = 0;
-  int ix0 = 0;
-  const uint8_t* image = a + group * c_in;
-  if (row_valid) {
-    const int ox = static_cast<int>(a_gm % s.out_width);
-    const int64_t rest = a_gm / s.out_width;
-    const int oy = static_cast<int>(rest % s.out_height);
-    const int64_t b = rest / s.out_height;
-    iy0 = oy * s.stride_h - s.pad_top;
-    ix0 = ox * s.stride_w - s.pad_left;
-    image += b * s.height * s.width * s.channels;
-  }
-  const int8_t pad_value = static_cast<int8_t>(izp_biased);
-
-  for (int ky = 0; ky < s.kernel_h; ++ky) {
-    const int iy = iy0 + ky * s.dil_h;
-    for (int kx = 0; kx < s.kernel_w; ++kx) {
-      const int ix = ix0 + kx * s.dil_w;
-      const bool inside = row_valid && iy >= 0 && iy < s.height && ix >= 0 &&
-                          ix < s.width;
-      const uint8_t* pixel =
-          image + (static_cast<int64_t>(inside ? iy : 0) * s.width +
-                   (inside ? ix : 0)) * s.channels;
-      const int64_t w_tap =
-          static_cast<int64_t>(ky * s.kernel_w + kx) * c_in;
-      for (int c0 = 0; c0 < c_in; c0 += kTileK) {
-        const int c = c0 + a_col;
-        if (vec8 && inside && c + 8 <= c_in) {
-          const uint2 v = *reinterpret_cast<const uint2*>(pixel + c);
-          *reinterpret_cast<uint32_t*>(&as[a_row][a_col]) = v.x ^ 0x80808080u;
-          *reinterpret_cast<uint32_t*>(&as[a_row][a_col + 4]) =
-              v.y ^ 0x80808080u;
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            int8_t v = 0;
-            if (row_valid && c + j < c_in) {
-              v = inside ? static_cast<int8_t>(pixel[c + j] ^ 0x80)
-                         : pad_value;
-            }
-            as[a_row][a_col + j] = v;
-          }
-        }
-        const int wc = c0 + w_row;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int gn = n0 + w_col + j;
-          int8_t v = 0;
-          if (wc < c_in && gn < n) {
-            v = w[(w_tap + wc) * s.out_channels + w_col0 + gn];
-          }
-          ws[w_col + j][w_row] = v;
-        }
-        __syncthreads();
-        qnn::tile_step(as, ws, tx, ty, kzp_biased != 0, t);
-        __syncthreads();
-      }
+// A tile of one K step: BM rows x 64 channels [c0, c0 + 64) of tap (dy, dx)
+// (already scaled by the dilation); `image` is the group's first channel.
+template <class T, int W>
+__device__ __forceinline__ void load_a(uint8_t* sa, const uint8_t* image,
+                                       const RowTable& rows, int height,
+                                       int width, int channels, int icpg,
+                                       int dy, int dx, int c0,
+                                       uint32_t fill_word) {
+  constexpr int kPerRow = T::kStep / W;
+  // Unrolled only for the wide copies: the byte loop's 32 addresses would
+  // otherwise be hoisted out of the K loop into registers.
+#pragma unroll(W >= 8 ? T::BM * kPerRow / T::kThreads : 1)
+  for (int j = 0; j < T::BM * kPerRow / T::kThreads; ++j) {
+    const int idx = threadIdx.x + j * T::kThreads;
+    const int r = idx / kPerRow;
+    const int col = (idx % kPerRow) * W;
+    uint8_t* dst = sa + r * T::kPitch + col;
+    const int c = c0 + col;
+    if (c >= icpg) {  // icpg % W == 0: whole chunks only
+      im::fill<W>(dst, 0u);
+      continue;
+    }
+    const int iy = rows.iy0[r] + dy;
+    const int ix = rows.ix0[r] + dx;
+    if (static_cast<unsigned>(iy) < static_cast<unsigned>(height) &&
+        static_cast<unsigned>(ix) < static_cast<unsigned>(width)) {
+      const int64_t pixel = rows.base[r] + static_cast<int64_t>(iy) * width +
+                            ix;
+      im::copy_in<W>(dst, image + pixel * channels + c, true);
+    } else {
+      im::fill<W>(dst, fill_word);
     }
   }
-  qnn::tile_store(t, m0, n0, m, n, s.out_channels, w_col0, tx, ty, bias,
-                  scales, kzp_biased, rp, out);
+}
+
+// W = 16: every in-image A copy is 16 bytes (the main paths' case,
+// compiled on its own); W = 0: the width is `copy_w`.
+template <class T, int W>
+struct ConvLoader {
+  const uint8_t* image;  // the group's first input channel
+  const int8_t* w_rows;  // the weights' row g*Ocpg + n0
+  RowTable rows;
+  int height, width, channels, icpg, icpg_p, kernel_w, dil_h, dil_w;
+  int steps_per_tap, taps, n_rows, copy_w;
+  uint32_t fill_word;
+
+  __device__ __forceinline__ void load(uint8_t* sa, uint8_t* sb,
+                                       int step) const {
+    const int tap = step / steps_per_tap;
+    const int c0 = (step - tap * steps_per_tap) * T::kStep;
+    const int ky = tap / kernel_w;
+    const int dy = ky * dil_h;
+    const int dx = (tap - ky * kernel_w) * dil_w;
+    switch (W == 16 ? 16 : copy_w) {
+      case 16:
+        load_a<T, 16>(sa, image, rows, height, width, channels, icpg, dy, dx,
+                      c0, fill_word);
+        break;
+      case 8:
+        load_a<T, 8>(sa, image, rows, height, width, channels, icpg, dy, dx,
+                     c0, fill_word);
+        break;
+      case 4:
+        load_a<T, 4>(sa, image, rows, height, width, channels, icpg, dy, dx,
+                     c0, fill_word);
+        break;
+      default:
+        load_a<T, 1>(sa, image, rows, height, width, channels, icpg, dy, dx,
+                     c0, fill_word);
+    }
+    im::load_b<T>(sb, w_rows, static_cast<int64_t>(taps) * icpg_p,
+                  static_cast<int64_t>(tap) * icpg_p + c0, n_rows);
+  }
+};
+
+template <class T, int W>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+    q8conv_kernel(const ConvArgs p) {
+  extern __shared__ __align__(16) uint8_t ring[];
+  __shared__ int iy0[T::BM];
+  __shared__ int ix0[T::BM];
+  __shared__ int base[T::BM];
+  __shared__ int flag;
+  const int64_t m =
+      static_cast<int64_t>(p.batch) * p.out_height * p.out_width;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * T::BM;
+  const int n0 = blockIdx.y * T::BN;
+  const int group = blockIdx.z / p.sp.splits;
+  const int split = blockIdx.z % p.sp.splits;
+
+  for (int r = threadIdx.x; r < T::BM; r += T::kThreads) {
+    const int64_t gm = m0 + r;
+    if (gm < m) {
+      const int ox = static_cast<int>(gm % p.out_width);
+      const int64_t rest = gm / p.out_width;
+      const int oy = static_cast<int>(rest % p.out_height);
+      const int b = static_cast<int>(rest / p.out_height);
+      iy0[r] = oy * p.stride_h - p.pad_top;
+      ix0[r] = ox * p.stride_w - p.pad_left;
+      base[r] = b * p.height * p.width;
+    } else {
+      iy0[r] = kOutside;
+      ix0[r] = kOutside;
+      base[r] = 0;
+    }
+  }
+  __syncthreads();
+
+  const int taps = p.kernel_h * p.kernel_w;
+  const int steps_per_tap = p.icpg_p / T::kStep;
+  // The split's K units of 64 bytes, as ring stages of T::kStep bytes.
+  const int units = taps * (p.icpg_p / im::kStepK);
+  const int unit0 = split * p.sp.steps_per_split;
+  const int nunits = min(p.sp.steps_per_split, units - unit0);
+  const int step0 = unit0 / T::kUnits;
+  const int nsteps = (nunits + T::kUnits - 1) / T::kUnits;
+  const int row0 = group * p.ocpg + n0;
+  const ConvLoader<T, W> ld{
+      p.a + group * p.icpg,
+      p.w + static_cast<int64_t>(row0) * taps * p.icpg_p,
+      RowTable{iy0, ix0, base},
+      p.height, p.width, p.channels, p.icpg, p.icpg_p, p.kernel_w, p.dil_h,
+      p.dil_w, steps_per_tap, taps, p.ocpg - n0, p.copy_w,
+      static_cast<uint32_t>(p.izp) * 0x01010101u};
+  im::Acc<T> acc;
+  im::mainloop<T>(ld, ring, step0, nsteps, p.kzp_biased != 0, acc);
+  if (p.sp.splits > 1) {
+    const int64_t tile =
+        (static_cast<int64_t>(group) * gridDim.y + blockIdx.y) * gridDim.x +
+        blockIdx.x;
+    if (!im::split_reduce<T>(acc, p.sp, tile, split, &flag)) return;
+  }
+  im::epilogue<T>(acc, ring, m0, n0, m, p.ocpg, p.out_channels,
+                  group * p.ocpg, p.bias_c, p.scales, p.kzp_biased, p.rp,
+                  p.out);
+}
+
+template <class T>
+cudaError_t launch(const ConvArgs& p, int groups, int device,
+                   cudaStream_t stream) {
+  static unsigned ready = 0;
+  const cudaError_t err =
+      im::allow_smem(q8conv_kernel<T, 16>, q8conv_kernel<T, 0>,
+                     T::kSmemBytes, device, ready);
+  if (err != cudaSuccess) return err;
+  const auto kernel =
+      p.copy_w == 16 ? q8conv_kernel<T, 16> : q8conv_kernel<T, 0>;
+  const int64_t m =
+      static_cast<int64_t>(p.batch) * p.out_height * p.out_width;
+  const dim3 grid(static_cast<unsigned>((m + T::BM - 1) / T::BM),
+                  static_cast<unsigned>((p.ocpg + T::BN - 1) / T::BN),
+                  static_cast<unsigned>(groups * p.sp.splits));
+  kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// tile, splits, workspace and counters as for qnn_q8gemm; `w` is K-major
+// [out_channels, kernel_h * kernel_w, icpg_p]; `izp` the raw input zero
+// point.
 extern "C" int qnn_q8conv(int device, const void* a, const void* w,
-                          const void* bias, const void* scales, void* out,
+                          const void* bias_c, const void* scales, void* out,
                           int batch, int height, int width, int channels,
                           int out_height, int out_width, int out_channels,
                           int groups, int kernel_h, int kernel_w,
                           int stride_h, int stride_w, int pad_top,
-                          int pad_left, int dil_h, int dil_w, int izp_biased,
-                          int kzp_biased, int scheme, int multiplier,
+                          int pad_left, int dil_h, int dil_w, int izp,
+                          int kzp_biased, int icpg_p, int tile, int splits,
+                          int steps_per_split, void* workspace,
+                          void* counters, int scheme, int multiplier,
                           int shift, int zero_point, int qmin, int qmax,
                           float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -177,21 +255,49 @@ extern "C" int qnn_q8conv(int device, const void* a, const void* w,
   }
   const int icpg = channels / groups;
   const int ocpg = out_channels / groups;
-  const ConvShape s{batch,     height,       width,    channels,
-                    out_height, out_width,   out_channels,
-                    icpg,      ocpg,         kernel_h, kernel_w,
-                    stride_h,  stride_w,     pad_top,  pad_left,
-                    dil_h,     dil_w};
-  const qnn::Requant rp{scheme, multiplier, shift, zero_point, qmin, qmax,
-                        scale};
-  const bool vec8 = icpg % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 8 == 0;
-  const dim3 grid(static_cast<unsigned>((m + kTileM - 1) / kTileM),
-                  static_cast<unsigned>((ocpg + kTileN - 1) / kTileN),
-                  static_cast<unsigned>(groups));
-  q8conv_kernel<<<grid, kTileThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(a), static_cast<const int8_t*>(w),
-      static_cast<const int32_t*>(bias), static_cast<const float*>(scales),
-      static_cast<uint8_t*>(out), s, izp_biased, kzp_biased, vec8, rp);
-  return static_cast<int>(cudaGetLastError());
+  const int steps = kernel_h * kernel_w * (icpg_p / im::kStepK);
+  if (icpg_p % im::kStepK != 0 || icpg_p < icpg || steps < 1 ||
+      splits < 1 || steps_per_split < 1 ||
+      steps_per_split > im::kMaxChainSteps ||
+      static_cast<int64_t>(splits) * steps_per_split < steps ||
+      (splits - 1) * steps_per_split >= steps ||
+      static_cast<int64_t>(groups) * splits > 65535 ||
+      static_cast<int64_t>(batch) * height * width >= (int64_t{1} << 31) ||
+      (splits > 1 && (workspace == nullptr || counters == nullptr)) ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const ConvArgs p{
+      static_cast<const uint8_t*>(a),
+      static_cast<const int8_t*>(w),
+      static_cast<const int32_t*>(bias_c),
+      static_cast<const float*>(scales),
+      static_cast<uint8_t*>(out),
+      batch, height, width, channels,
+      out_height, out_width, out_channels,
+      icpg, ocpg, icpg_p,
+      kernel_h, kernel_w, stride_h, stride_w, pad_top, pad_left, dil_h,
+      dil_w,
+      izp, kzp_biased, im::copy_width(a, icpg),
+      qnn::Requant{scheme, multiplier, shift, zero_point, qmin, qmax, scale},
+      im::Split{splits, steps_per_split, static_cast<int32_t*>(workspace),
+                static_cast<int*>(counters)}};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 0:
+      return static_cast<int>(launch<im::Tile128x128>(p, groups, device, s));
+    case 1:
+      return static_cast<int>(launch<im::Tile128x64>(p, groups, device, s));
+    case 2:
+      return static_cast<int>(launch<im::Tile64x64>(p, groups, device, s));
+    case 3:  // a step never straddles two taps
+      if (icpg_p % im::Tile128x128Deep::kStep ||
+          (splits > 1 && steps_per_split % im::Tile128x128Deep::kUnits)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      return static_cast<int>(
+          launch<im::Tile128x128Deep>(p, groups, device, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

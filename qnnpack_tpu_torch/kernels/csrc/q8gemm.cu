@@ -4,109 +4,194 @@
 // q8gemm_small_pallas (K untiled, per-tensor or per-channel requant) and
 // qnnpack_tpu/kernels/q8gemm.py:q8gemm_pallas (K tiled, accumulator and row
 // sum carried across K steps).  One kernel serves both contracts: the K loop
-// runs inside the block, so nothing is carried between blocks.
+// runs inside the block (or inside each split of it), so nothing is carried
+// between blocks except split-K's partial tiles.
 //
-//   acc[m, n] = sum_k A'[m, k] W'[k, n] - kzp' * sum_k A'[m, k] + bias'[n]
+//   acc[m, n] = sum_k A[m, k] W'[k, n] + c[n] - kzp' * sum_k A[m, k]
 //   out[m, n] = requantize(acc[m, n])        (any scheme, in registers)
 //
-// A' = A ^ 0x80 is rebiased as it is loaded.  Ragged M, N and K edges are
-// masked: a padded K position holds biased 0, which adds nothing to the
-// product or to the row sum.
+// with c[n] folded at pack time (nn/packing.py), which equals the
+// reference's sum A'W' + bias' - kzp' sum A' mod 2^32 (A' = A - 128).  W
+// comes K-major, [N, Kp] with Kp = K rounded up to the 64-byte K step and
+// zeros past K.  A is read as it lies: 16-, 8- or 4-byte cp.async copies as
+// far as the base address and K allow (plain byte copies otherwise), zero
+// past M and K, so a ragged K position adds nothing to the product or to
+// the row sum.
 //
-// What bounds it: the main-path shapes are skinny (K 16..960, N 16..1280)
-// with M up to 1.6M rows, so most layers move far more bytes than they do
-// operations per byte (below the int8 ridge) and are bound by memory; the
-// head and FC layers at large M are the most compute-heavy.  Design: the
-// 64 x 64 tile of igemm_tile.cuh (a 32-deep K step staged through shared
-// memory, __dp4a on the CUDA cores, 4 x 4 outputs per thread, the row sum
-// for kzp != 128 as one more __dp4a per row against 0x01010101).  The int32
-// accumulator never leaves registers: the only store is the uint8 output.
-// Tensor cores (mma.sync / wgmma) and TMA are work for a later change.
+// What bounds it: MobileNetV2's and ShuffleNet's 1x1 layers (K 16..960)
+// move more bytes than they do int8 operations per byte at the card's ridge
+// and are bound by memory; BERT's projections (K = 768, 3072; M = 16,384 at
+// batch 128) are bound by the tensor cores.  Design: the tensor-core tile of
+// imma_tile.cuh (u8 x s8 mma.sync fed by ldmatrix from a cp.async ring,
+// four block shapes and split-K picked by the wrapper), with an instance of
+// its own for the 16-byte copies of the main paths.  wgmma with TMA and a
+// producer warp is the step after this one.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "igemm_tile.cuh"
+#include "imma_tile.cuh"
 
 namespace {
 
-using qnn::kTileK;
-using qnn::kTileM;
-using qnn::kTileN;
-using qnn::kTileRow;
-using qnn::kTileThreads;
+namespace im = qnn::imma;
 
-__global__ void __launch_bounds__(kTileThreads)
-    q8gemm_kernel(const uint8_t* __restrict__ a, const int8_t* __restrict__ w,
-                  const int32_t* __restrict__ bias,
-                  const float* __restrict__ scales, uint8_t* __restrict__ out,
-                  int64_t m, int n, int k, int kzp_biased, qnn::Requant rp) {
-  __shared__ __align__(16) int8_t as[kTileM][kTileRow];
-  __shared__ __align__(16) int8_t ws[kTileN][kTileRow];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kTileM;
-  const int n0 = blockIdx.y * kTileN;
-
-  qnn::TileAcc t;
-  qnn::tile_zero(t);
-
-  // Loader coordinates: A tile 64 rows x 32 bytes, 8 bytes of one row per
-  // thread; W tile 32 k-rows x 64 columns, 8 columns of one k-row per thread.
-  const int a_row = tid / 4;
-  const int a_col = (tid % 4) * 8;
-  const int w_row = tid / 8;
-  const int w_col = (tid % 8) * 8;
-  const int64_t a_gm = m0 + a_row;
-
-  for (int k0 = 0; k0 < k; k0 += kTileK) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gk = k0 + a_col + j;
-      int8_t v = 0;
-      if (a_gm < m && gk < k) {
-        v = static_cast<int8_t>(a[a_gm * k + gk] ^ 0x80);
-      }
-      as[a_row][a_col + j] = v;
-    }
-    const int w_gk = k0 + w_row;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + w_col + j;
-      int8_t v = 0;
-      if (w_gk < k && gn < n) v = w[static_cast<int64_t>(w_gk) * n + gn];
-      ws[w_col + j][w_row] = v;
-    }
-    __syncthreads();
-    qnn::tile_step(as, ws, tx, ty, kzp_biased != 0, t);
-    __syncthreads();
+// A tile: BM rows of A [M, K] from row m0, 64 bytes from k0 on.
+template <class T, int W>
+__device__ __forceinline__ void load_a(uint8_t* sa, const uint8_t* a,
+                                       int64_t m, int k, int64_t m0, int k0) {
+  constexpr int kPerRow = T::kStep / W;
+  // Unrolled only for the wide copies: the byte loop's 32 addresses would
+  // otherwise be hoisted out of the K loop into registers.
+#pragma unroll(W >= 8 ? T::BM * kPerRow / T::kThreads : 1)
+  for (int j = 0; j < T::BM * kPerRow / T::kThreads; ++j) {
+    const int idx = threadIdx.x + j * T::kThreads;
+    const int r = idx / kPerRow;
+    const int col = (idx % kPerRow) * W;
+    const int64_t gm = m0 + r;
+    const int gk = k0 + col;
+    const bool ok = gm < m && gk < k;  // K % W == 0: whole chunks only
+    im::copy_in<W>(sa + r * T::kPitch + col, ok ? a + gm * k + gk : a, ok);
   }
-  qnn::tile_store(t, m0, n0, m, n, n, 0, tx, ty, bias, scales, kzp_biased, rp,
-                  out);
+}
+
+struct GemmArgs {
+  const uint8_t* a;
+  const int8_t* w;  // K-major [N, kp]
+  const int32_t* bias_c;
+  const float* scales;
+  uint8_t* out;
+  int64_t m;
+  int n, k, kp, width, kzp_biased;
+  qnn::Requant rp;
+  im::Split sp;
+};
+
+// W = 16: every A copy is 16 bytes (the main paths' case, compiled on its
+// own so that it carries no other path); W = 0: the width is `width`.
+template <class T, int W>
+struct GemmLoader {
+  const uint8_t* a;
+  const int8_t* w_rows;  // row n0 of the K-major weights
+  int64_t m, m0;
+  int k, kp, rows, width;
+
+  __device__ __forceinline__ void load(uint8_t* sa, uint8_t* sb,
+                                       int step) const {
+    const int k0 = step * T::kStep;
+    switch (W == 16 ? 16 : width) {
+      case 16:
+        load_a<T, 16>(sa, a, m, k, m0, k0);
+        break;
+      case 8:
+        load_a<T, 8>(sa, a, m, k, m0, k0);
+        break;
+      case 4:
+        load_a<T, 4>(sa, a, m, k, m0, k0);
+        break;
+      default:
+        load_a<T, 1>(sa, a, m, k, m0, k0);
+    }
+    im::load_b<T>(sb, w_rows, kp, k0, rows);
+  }
+};
+
+template <class T, int W>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+    q8gemm_kernel(const GemmArgs p) {
+  extern __shared__ __align__(16) uint8_t ring[];
+  __shared__ int flag;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * T::BM;
+  const int n0 = blockIdx.y * T::BN;
+  const int split = blockIdx.z;
+  // The split's K units of 64 bytes, as ring stages of T::kStep bytes.
+  const int units = p.kp / im::kStepK;
+  const int unit0 = split * p.sp.steps_per_split;
+  const int nunits = min(p.sp.steps_per_split, units - unit0);
+  const int step0 = unit0 / T::kUnits;
+  const int nsteps = (nunits + T::kUnits - 1) / T::kUnits;
+  const GemmLoader<T, W> ld{p.a,  p.w + static_cast<int64_t>(n0) * p.kp,
+                            p.m,  m0,
+                            p.k,  p.kp,
+                            p.n - n0, p.width};
+  im::Acc<T> acc;
+  im::mainloop<T>(ld, ring, step0, nsteps, p.kzp_biased != 0, acc);
+  if (p.sp.splits > 1) {
+    const int64_t tile =
+        static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    if (!im::split_reduce<T>(acc, p.sp, tile, split, &flag)) return;
+  }
+  im::epilogue<T>(acc, ring, m0, n0, p.m, p.n, p.n, 0, p.bias_c, p.scales,
+                  p.kzp_biased, p.rp, p.out);
+}
+
+template <class T>
+cudaError_t launch(const GemmArgs& p, int device, cudaStream_t stream) {
+  static unsigned ready = 0;
+  const cudaError_t err =
+      im::allow_smem(q8gemm_kernel<T, 16>, q8gemm_kernel<T, 0>,
+                     T::kSmemBytes, device, ready);
+  if (err != cudaSuccess) return err;
+  const auto kernel =
+      p.width == 16 ? q8gemm_kernel<T, 16> : q8gemm_kernel<T, 0>;
+  const dim3 grid(static_cast<unsigned>((p.m + T::BM - 1) / T::BM),
+                  static_cast<unsigned>((p.n + T::BN - 1) / T::BN),
+                  static_cast<unsigned>(p.sp.splits));
+  kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// tile: 0 = 128 x 128, 1 = 128 x 64, 2 = 64 x 64 (kernels/q8gemm.py TILES).
+// splits > 1 needs `workspace` ([tiles, splits, BM * BN + BM] int32) and
+// `counters` ([tiles] int32, all 0; left all 0).
 extern "C" int qnn_q8gemm(int device, const void* a, const void* w,
-                          const void* bias, const void* scales, void* out,
-                          int64_t m, int n, int k, int kzp_biased, int scheme,
+                          const void* bias_c, const void* scales, void* out,
+                          int64_t m, int n, int k, int kp, int kzp_biased,
+                          int tile, int splits, int steps_per_split,
+                          void* workspace, void* counters, int scheme,
                           int multiplier, int shift, int zero_point, int qmin,
                           int qmax, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m == 0 || n == 0) return 0;
-  const qnn::Requant rp{scheme, multiplier, shift, zero_point, qmin, qmax,
-                        scale};
-  const dim3 grid(static_cast<unsigned>((m + kTileM - 1) / kTileM),
-                  static_cast<unsigned>((n + kTileN - 1) / kTileN));
-  q8gemm_kernel<<<grid, kTileThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(a), static_cast<const int8_t*>(w),
-      static_cast<const int32_t*>(bias), static_cast<const float*>(scales),
-      static_cast<uint8_t*>(out), m, n, k, kzp_biased, rp);
-  return static_cast<int>(cudaGetLastError());
+  const int steps = kp / im::kStepK;
+  if (kp % im::kStepK != 0 || kp < k || steps < 1 || splits < 1 ||
+      steps_per_split < 1 || steps_per_split > im::kMaxChainSteps ||
+      static_cast<int64_t>(splits) * steps_per_split < steps ||
+      (splits - 1) * steps_per_split >= steps ||
+      (splits > 1 && (workspace == nullptr || counters == nullptr)) ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const GemmArgs p{static_cast<const uint8_t*>(a),
+                   static_cast<const int8_t*>(w),
+                   static_cast<const int32_t*>(bias_c),
+                   static_cast<const float*>(scales),
+                   static_cast<uint8_t*>(out),
+                   m, n, k, kp, im::copy_width(a, k), kzp_biased,
+                   qnn::Requant{scheme, multiplier, shift, zero_point, qmin,
+                                qmax, scale},
+                   im::Split{splits, steps_per_split,
+                             static_cast<int32_t*>(workspace),
+                             static_cast<int*>(counters)}};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 0:
+      return static_cast<int>(launch<im::Tile128x128>(p, device, s));
+    case 1:
+      return static_cast<int>(launch<im::Tile128x64>(p, device, s));
+    case 2:
+      return static_cast<int>(launch<im::Tile64x64>(p, device, s));
+    case 3:
+      if (splits > 1 && steps_per_split % im::Tile128x128Deep::kUnits) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      return static_cast<int>(launch<im::Tile128x128Deep>(p, device, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* qnn_error_string(int code) {

@@ -14,9 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from ..nn.packing import K_STEP
 from ..nn.requant_dispatch import apply_requant
 from . import _build
-from .q8gemm import gemm_acc_plain
+from .q8gemm import gemm_acc_plain, plan_launch
 
 
 def check_conv(a_u8, packed) -> None:
@@ -29,6 +30,14 @@ def check_conv(a_u8, packed) -> None:
     if a_u8.dim() != 4 or a_u8.shape[3] != channels:
         raise ValueError(f"input {tuple(a_u8.shape)} does not match "
                          f"{channels} channels")
+
+
+def conv_steps(packed):
+    """(K steps of 64 bytes, deep) of a packed conv, as tile_plan takes
+    them: a K step never straddles two taps, so 128-byte stages (`deep`)
+    need each tap's padded channel run to hold whole ones."""
+    _, taps, icpg_p = packed.w_kmajor.shape
+    return taps * icpg_p // K_STEP, icpg_p % (2 * K_STEP) == 0
 
 
 def q8conv_plain(a_u8, packed, rparams, strides=(1, 1),
@@ -68,24 +77,34 @@ def q8conv_cuda(a_u8, packed, rparams, strides=(1, 1),
         return q8conv_plain(a_u8, packed, rparams, strides, padding,
                             dilation)
     _build.check_cuda("a", a_u8, torch.uint8, 4)
-    _build.check_cuda("w", packed.w, torch.int8, 4)
-    _build.check_cuda("bias_folded", packed.bias_folded, torch.int32, 1)
-    if packed.w.device != a_u8.device:
-        raise ValueError(f"weights on {packed.w.device}, activations on "
-                         f"{a_u8.device}")
+    _build.check_cuda("w_kmajor", packed.w_kmajor, torch.int8, 3)
+    _build.check_cuda("bias_c", packed.bias_c, torch.int32, 1)
+    if packed.w_kmajor.device != a_u8.device:
+        raise ValueError(f"weights on {packed.w_kmajor.device}, activations "
+                         f"on {a_u8.device}")
     b, h, w, c = a_u8.shape
     kh, kw = packed.kernel_height, packed.kernel_width
-    o = packed.w.shape[-1]
+    o, taps, icpg_p = packed.w_kmajor.shape
+    if (taps != kh * kw or icpg_p % K_STEP
+            or icpg_p < packed.group_input_channels):
+        raise ValueError(f"w_kmajor shape {(o, taps, icpg_p)} does not fit "
+                         f"{kh}x{kw} taps of {packed.group_input_channels} "
+                         "channels")
     ho, wo = _build.out_dims(h, w, kh, kw, strides, padding, dilation)
     scales, rq = _build.requant_args(rparams, o, a_u8.device)
     out = torch.empty((b, ho, wo, o), dtype=torch.uint8, device=a_u8.device)
+    steps, deep = conv_steps(packed)
+    work, plan = plan_launch(a_u8.device, b * ho * wo,
+                             packed.group_output_channels, steps,
+                             packed.groups, deep)
     _build.launch(
         "qnn_q8conv", a_u8.device.index or 0, a_u8.data_ptr(),
-        packed.w.data_ptr(), packed.bias_folded.data_ptr(),
+        packed.w_kmajor.data_ptr(), packed.bias_c.data_ptr(),
         None if scales is None else scales.data_ptr(), out.data_ptr(),
         b, h, w, c, ho, wo, o, packed.groups, kh, kw, strides[0],
         strides[1], padding[0][0], padding[1][0], dilation[0], dilation[1],
-        packed.izp_biased, packed.kzp_biased, *rq, _build.stream_of(a_u8))
+        packed.input_zero_point, packed.kzp_biased, icpg_p, *plan, *rq,
+        _build.stream_of(a_u8))
     q8conv_cuda.launches += 1
     return out
 

@@ -6,16 +6,107 @@ design and what bounds it, is csrc/q8gemm.cu.
 
 `q8gemm_cuda` takes the plain version for CPU tensors only.  For CUDA
 tensors it launches the kernel or raises; there is no fallback.
+
+`tile_plan` picks the kernel's block shape and split-K for q8gemm and
+q8conv alike (csrc/imma_tile.cuh).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..nn.dtypes import u8_to_biased_i8
-from ..nn.packing import PackedGemmWeights
+from ..nn.packing import K_STEP, PackedGemmWeights
 from ..nn.requant_dispatch import apply_requant
 from . import _build
+
+# (BM, BN) of csrc/imma_tile.cuh's block shapes, by the C entry's tile id.
+# Tile 3 is tile 0 with 128-byte ring stages (3 of them, not 4 of 64).
+TILES = ((128, 128), (128, 64), (64, 64), (128, 128))
+DEEP_TILE = 3
+# K (in steps of 64 bytes) from which the 128 x 128 shape takes 128-byte
+# stages: 7-12% faster at K = 768..4608, slower at K = 320 and below
+# (H100 80GB HBM3, 700 W, scripts/bench_imma.py --tiles).
+DEEP_MIN_STEPS = 8
+# Deepest K run one int32 mma chain takes (imma_tile.cuh kMaxChainSteps):
+# 1024 steps of 64, so |sum A W'| < 255 * 128 * 65536 < 2^31.
+MAX_CHAIN_STEPS = 1024
+# A split takes at least this many K steps when splitting only for width.
+MIN_SPLIT_STEPS = 4
+
+
+def tile_plan(m: int, n: int, steps: int, groups: int, sms: int,
+              deep: bool = True):
+    """(tile id, splits, steps per split) of one launch of M x N (per
+    group) over `steps` K steps of 64 bytes on a card of `sms` SMs.
+
+    The widest block shape that still gives every SM a block; then K is
+    split in powers of two while the blocks fill at most one wave and each
+    split keeps MIN_SPLIT_STEPS steps; and K deeper than MAX_CHAIN_STEPS
+    steps is always split, which keeps every int32 chain exact.  An unsplit
+    128 x 128 launch of DEEP_MIN_STEPS or more takes 128-byte stages where
+    `deep` allows (a conv whose taps hold whole 128-byte stages)."""
+    def blocks(tile):
+        bm, bn = TILES[tile]
+        return -(-m // bm) * -(-n // bn) * groups
+
+    if n > TILES[1][1] and blocks(0) >= sms:
+        tile = 0
+    elif blocks(1) >= sms:
+        tile = 1
+    else:
+        tile = 2
+    splits = 1
+    while (blocks(tile) * splits * 2 <= sms
+           and steps >= splits * 2 * MIN_SPLIT_STEPS):
+        splits *= 2
+    splits = max(splits, -(-steps // MAX_CHAIN_STEPS))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    if tile == 0 and splits == 1 and deep and steps >= DEEP_MIN_STEPS:
+        tile = DEEP_TILE
+    return tile, splits, per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_counters = {}
+
+
+def _split_counters(device, blocks: int) -> torch.Tensor:
+    """The device's split-K counters, one int32 per output tile, all 0: the
+    kernel's last block of each tile sets its counter back to 0.  Launches
+    on one device go to one stream, so two never use them at once."""
+    counters = _counters.get(device)
+    if counters is None or counters.numel() < blocks:
+        counters = torch.zeros(max(blocks, 4096), dtype=torch.int32,
+                               device=device)
+        _counters[device] = counters
+    return counters
+
+
+def plan_launch(device, m: int, n: int, steps: int, groups: int = 1,
+                deep: bool = True):
+    """tile_plan on `device` and its split-K scratch: (workspace or None,
+    [tile, splits, steps per split, workspace ptr, counters ptr]), the
+    arguments that the C entries of q8gemm and q8conv take.  The workspace
+    holds each split's int32 partial tile; once the caller drops it, the
+    caching allocator hands it only to later work on the same stream."""
+    tile, splits, per = tile_plan(m, n, steps, groups, _sm_count(device),
+                                  deep)
+    if splits == 1:
+        return None, [tile, 1, per, 0, 0]
+    bm, bn = TILES[tile]
+    blocks = -(-m // bm) * -(-n // bn) * groups
+    work = torch.empty(blocks * splits * (bm * bn + bm), dtype=torch.int32,
+                       device=device)
+    return work, [tile, splits, per, work.data_ptr(),
+                  _split_counters(device, blocks).data_ptr()]
 
 
 def gemm_acc_plain(a_u8: torch.Tensor, w: torch.Tensor,
@@ -50,22 +141,24 @@ def q8gemm_cuda(a_u8: torch.Tensor, packed: PackedGemmWeights, rparams):
     if a_u8.device.type == "cpu":
         return q8gemm_plain(a_u8, packed, rparams)
     _build.check_cuda("a", a_u8, torch.uint8, 2)
-    _build.check_cuda("w", packed.w, torch.int8, 2)
-    _build.check_cuda("bias_folded", packed.bias_folded, torch.int32, 1)
-    if packed.w.device != a_u8.device:
-        raise ValueError(f"weights on {packed.w.device}, activations on "
-                         f"{a_u8.device}")
-    if tuple(packed.w.shape) != (packed.k, packed.n):
-        raise ValueError(f"w shape {tuple(packed.w.shape)} != "
+    _build.check_cuda("w_kmajor", packed.w_kmajor, torch.int8, 2)
+    _build.check_cuda("bias_c", packed.bias_c, torch.int32, 1)
+    if packed.w_kmajor.device != a_u8.device:
+        raise ValueError(f"weights on {packed.w_kmajor.device}, activations "
+                         f"on {a_u8.device}")
+    n, kp = packed.w_kmajor.shape
+    if n != packed.n or kp % K_STEP or kp < packed.k:
+        raise ValueError(f"w_kmajor shape {(n, kp)} does not fit "
                          f"{(packed.k, packed.n)}")
     m = a_u8.shape[0]
     scales, rq = _build.requant_args(rparams, packed.n, a_u8.device)
     out = torch.empty((m, packed.n), dtype=torch.uint8, device=a_u8.device)
+    work, plan = plan_launch(a_u8.device, m, packed.n, kp // K_STEP)
     _build.launch(
         "qnn_q8gemm", a_u8.device.index or 0, a_u8.data_ptr(),
-        packed.w.data_ptr(), packed.bias_folded.data_ptr(),
+        packed.w_kmajor.data_ptr(), packed.bias_c.data_ptr(),
         None if scales is None else scales.data_ptr(), out.data_ptr(),
-        m, packed.n, packed.k, packed.kzp_biased, *rq,
+        m, packed.n, packed.k, kp, packed.kzp_biased, *plan, *rq,
         _build.stream_of(a_u8))
     q8gemm_cuda.launches += 1
     return out

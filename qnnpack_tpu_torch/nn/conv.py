@@ -31,7 +31,8 @@ from ..kernels.q8conv import q8conv_cuda
 from ..kernels.q8dwconv import q8dwconv_cuda
 from ..kernels.q8stem import MAX_INPUT_CHANNELS, q8stem_cuda
 from .dtypes import biased_zero_point, u8_to_biased_i8
-from .packing import PackedGemmWeights, as_tensor, fold_bias
+from .packing import (PackedGemmWeights, as_tensor, fold_bias, round_up,
+                      set_kernel_fields)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +41,11 @@ class PackedConvWeights:
 
     w:           int8 [Kh, Kw, Icpg, O] biased (value - 128), contiguous
     bias_folded: int32 [O]
+    w_kmajor:    int8 [O, Kh*Kw, Icpg_p] w regrouped K-major, each tap's
+                 channel run zero-padded to Icpg_p = Icpg rounded up to the
+                 kernels' 64-byte K step (derived; nn/packing.py)
+    bias_c:      int32 [O] kmajor_bias of bias_folded, K = Kh*Kw*Icpg
+                 (derived)
     """
 
     w: torch.Tensor
@@ -51,6 +57,19 @@ class PackedConvWeights:
     groups: int
     input_zero_point: int
     kernel_zero_point: int
+    w_kmajor: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                               compare=False)
+    bias_c: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                             compare=False)
+
+    def __post_init__(self):
+        kh, kw, icpg, o = self.w.shape
+        wk = torch.zeros((o, kh * kw, round_up(icpg)), dtype=torch.int8,
+                         device=self.w.device)
+        wk[..., :icpg] = self.w.permute(3, 0, 1, 2).reshape(o, kh * kw, icpg)
+        set_kernel_fields(self, wk,
+                          self.w.to(torch.int64).sum(dim=(0, 1, 2)),
+                          kh * kw * icpg)
 
     @property
     def izp_biased(self) -> int:

@@ -8,7 +8,9 @@ and the shifted zero points are carried through the same algebra:
 
 Integer arithmetic is exact, so accumulators - and therefore requantized
 outputs - are identical to QNNPACK's.  Same encoding as
-qnnpack_tpu/nn/dtypes.py; the CUDA kernels rebias as they load.
+qnnpack_tpu/nn/dtypes.py.  The q8bmm kernel rebiases as it loads; the
+q8gemm and q8conv kernels read raw uint8 activations and the packed
+weights carry the difference (nn/packing.py `kmajor_bias`).
 """
 
 from __future__ import annotations

@@ -10,6 +10,13 @@ The only dynamic correction left for the kernel epilogue is the per-row
 activation sum times the kernel zero point; the CUDA GEMM kernel takes
 that row sum itself, so the JAX package's `w_aug` (an MXU trick) is not
 carried over.
+
+Beside `w` (the JAX package's layout, which the plain versions and the
+parity tests read) every packed record holds what the tensor-core kernels
+read, derived once at construction: `w_kmajor`, the weights K-major (each
+output column's K bytes contiguous, zero-padded to the kernels' 64-byte K
+step), and `bias_c`, the folded bias of the raw-uint8 form of the sum
+(`kmajor_bias`).  Nothing is transposed or padded on the launch path.
 """
 
 from __future__ import annotations
@@ -21,6 +28,39 @@ import torch
 
 from .dtypes import biased_zero_point, u8_to_biased_i8
 
+# K step of the tensor-core kernels (csrc/imma_tile.cuh kStepK): K-major
+# weight rows are padded with zeros to a multiple of it.
+K_STEP = 64
+
+
+def round_up(x: int, step: int = K_STEP) -> int:
+    return -(-max(int(x), 1) // step) * step
+
+
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32, wrapped mod 2^32 as the JAX package's int32 math."""
+    return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def kmajor_bias(bias_folded: torch.Tensor, w_sums: torch.Tensor, k: int,
+                kzp_biased: int) -> torch.Tensor:
+    """c = bias' - 128 * sum(W') + 128 * K * kzp' (int32, wrapped).
+
+    With A' = A - 128 the reference's sum_k A'W' + bias' - kzp' sum_k A'
+    equals sum_k A W' + c - kzp' sum_k A mod 2^32, so a kernel can take
+    the raw uint8 A as it lies in memory."""
+    c = (bias_folded.to(torch.int64) - 128 * w_sums.to(torch.int64)
+         + 128 * k * kzp_biased)
+    return wrap_int32(c)
+
+
+def set_kernel_fields(record, w_kmajor: torch.Tensor,
+                      w_sums: torch.Tensor, k: int) -> None:
+    """Set the kernels' fields of a frozen packed record."""
+    object.__setattr__(record, "w_kmajor", w_kmajor)
+    object.__setattr__(record, "bias_c", kmajor_bias(
+        record.bias_folded, w_sums, k, record.kzp_biased))
+
 
 @dataclasses.dataclass(frozen=True)
 class PackedGemmWeights:
@@ -30,6 +70,8 @@ class PackedGemmWeights:
     bias_folded: int32 [N]    bias with all static zero-point terms folded in
     k, n:        logical dims
     input_zero_point / kernel_zero_point: original uint8 zero points
+    w_kmajor:    int8 [N, Kp] w transposed, zero past K (derived)
+    bias_c:      int32 [N]    kmajor_bias of bias_folded (derived)
     """
 
     w: torch.Tensor
@@ -38,6 +80,17 @@ class PackedGemmWeights:
     n: int
     input_zero_point: int
     kernel_zero_point: int
+    w_kmajor: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                               compare=False)
+    bias_c: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                             compare=False)
+
+    def __post_init__(self):
+        wk = torch.zeros((self.n, round_up(self.k)), dtype=torch.int8,
+                         device=self.w.device)
+        wk[:, :self.k] = self.w.t()
+        set_kernel_fields(self, wk, self.w.to(torch.int64).sum(dim=0),
+                          self.k)
 
     @property
     def kzp_biased(self) -> int:
@@ -60,8 +113,7 @@ def fold_bias(bias, w_sums: torch.Tensor, count: int, input_zero_point: int,
     JAX package's int32 arithmetic wraps."""
     za = biased_zero_point(input_zero_point)
     zw = biased_zero_point(kernel_zero_point)
-    folded = bias.to(torch.int64) - za * w_sums + count * za * zw
-    return (((folded + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+    return wrap_int32(bias.to(torch.int64) - za * w_sums + count * za * zw)
 
 
 def pack_gemm_weights(kernel, bias, input_zero_point: int,

@@ -172,6 +172,19 @@ def test_bert_params_from_jax():
         tbert.params_from_jax(bad, cfg, device="cpu")
 
 
+def test_bert_params_from_jax_gives_the_kernel_fields_of_raw_packing():
+    """params_from_jax derives the same K-major weights and raw-uint8 bias
+    as the port's own packing of the raw weights."""
+    jp, _, tp, _ = build_pair(4, requant="fp32", **TINY)
+    cfg = tbert.BertConfig(requant="fp32", **TINY)
+    ported = tbert.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                   cfg, device="cpu")
+    for own, got in zip(tp, ported):
+        for name in tbert.LAYER_WEIGHTS:
+            assert torch.equal(got[name].w_kmajor, own[name].w_kmajor)
+            assert torch.equal(got[name].bias_c, own[name].bias_c)
+
+
 def test_bert_entry_example_and_spec():
     """entry(model="bert_base_s128") builds BERT-base from seed 0 and draws
     the example input from the same RNG after the weights, as bench_models

@@ -2,8 +2,11 @@
 package: the q8conv and q8stem kernels' plain versions against
 nn.conv.q8conv2d and against q8conv_pallas / q8stem_pallas in interpret
 mode, grouped q8conv against q8conv2d's grouped branches, the dense-conv
-route (which kernel q8conv2d picks), and the stem kernel's contract.
-Inputs come from a numpy seed; comparisons are exact."""
+route (which kernel q8conv2d picks), and the stem kernel's contract; the
+packed fields the tensor-core q8conv kernel reads (K-major weights padded
+per tap, the raw-uint8 bias) and the sum it forms from a gather with raw
+izp at the borders.  Inputs come from a numpy seed; comparisons are
+exact."""
 
 import numpy as np
 import pytest
@@ -19,8 +22,10 @@ from qnnpack_tpu.quant.params import \
     compute_per_channel_fp32_params as jper_channel
 from qnnpack_tpu_torch import kernels as tkernels
 from qnnpack_tpu_torch.kernels.q8conv import q8conv_cuda, q8conv_plain
+from qnnpack_tpu_torch.kernels.q8gemm import gemm_acc_plain
 from qnnpack_tpu_torch.kernels.q8stem import q8stem_cuda, q8stem_plain
 from qnnpack_tpu_torch.nn import conv as tconv
+from qnnpack_tpu_torch.nn.requant_dispatch import apply_requant
 from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params as tmake
 from qnnpack_tpu_torch.quant.params import \
     compute_per_channel_fp32_params as tper_channel
@@ -299,3 +304,97 @@ def test_q8conv_rejects_channel_mismatch_and_groups():
     dw = tconv.pack_conv_weights(u8(4, 3, 3, 1), None, 128, 128, 4)
     with pytest.raises(ValueError):
         q8conv_cuda(torch.from_numpy(u8(1, 6, 6, 4)), dw, tr)
+
+
+# The tensor-core conv kernel's form of the sum (csrc/q8conv.cu): the
+# zero-point-padded gather (raw izp outside the image), channels past Icpg
+# raw 0, times the K-major weights [O, Kh*Kw, Icpg_p], + c - kzp' sum A.
+
+def conv_kmajor_acc(a, tp, strides, padding, dilation=(1, 1)):
+    """int64 array of the wrapped int32 accumulators [B*Ho*Wo, O]."""
+    icpg, ocpg = tp.group_input_channels, tp.group_output_channels
+    wk = tp.w_kmajor.numpy().astype(np.int64)
+    _, taps, icpg_p = wk.shape
+    accs = []
+    for g in range(tp.groups):
+        cols, _ = tconv.im2col(a[..., g * icpg:(g + 1) * icpg], tp, strides,
+                               padding, dilation)
+        cols = cols.numpy().astype(np.int64).reshape(-1, taps, icpg)
+        gathered = np.zeros((cols.shape[0], taps, icpg_p), np.int64)
+        gathered[..., :icpg] = cols
+        gathered = gathered.reshape(cols.shape[0], -1)
+        rows = slice(g * ocpg, (g + 1) * ocpg)
+        accs.append(gathered @ wk[rows].reshape(ocpg, -1).T
+                    + tp.bias_c.numpy()[rows]
+                    - tp.kzp_biased * gathered.sum(axis=-1, keepdims=True))
+    acc = np.concatenate(accs, axis=-1)
+    return ((acc + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def plain_conv_acc(a, tp, strides, padding, dilation=(1, 1)):
+    """The plain version's accumulators (q8conv_plain before requant)."""
+    icpg, ocpg = tp.group_input_channels, tp.group_output_channels
+    k = tp.kernel_height * tp.kernel_width * icpg
+    accs = []
+    for g in range(tp.groups):
+        cols, _ = tconv.im2col(a[..., g * icpg:(g + 1) * icpg], tp, strides,
+                               padding, dilation)
+        cout = slice(g * ocpg, (g + 1) * ocpg)
+        accs.append(gemm_acc_plain(cols, tp.w[..., cout].reshape(k, ocpg),
+                                   tp.bias_folded[cout], tp.kzp_biased))
+    return torch.cat(accs, dim=-1).numpy()
+
+
+KMAJOR_CASES = {
+    **{name: (h, w, 1, cin, cout, k, s, pad, d)
+       for name, (h, w, cin, cout, k, s, pad, d) in CONV_CASES.items()},
+    **{name: (h, w, g, icpg, ocpg, k, s, pad, 1)
+       for name, (h, w, g, icpg, ocpg, k, s, pad) in GROUPED_CASES.items()},
+}
+
+
+def kmajor_pair(case, izp, kzp):
+    h, w, g, icpg, ocpg, k, s, pad, d = KMAJOR_CASES[case]
+    kernel = u8(g * ocpg, k, k, icpg)
+    bias = RNG.integers(-20000, 20000, g * ocpg, dtype=np.int64).astype(
+        np.int32)
+    return (jconv.pack_conv_weights(kernel, bias, izp, kzp, g),
+            tconv.pack_conv_weights(kernel, bias, izp, kzp, g))
+
+
+@pytest.mark.parametrize("case", list(KMAJOR_CASES))
+def test_conv_kmajor_weights_are_w_regrouped_and_padded(case):
+    _, tp = kmajor_pair(case, 121, 103)
+    kh, kw, icpg, o = tp.w.shape
+    icpg_p = -(-icpg // 64) * 64
+    assert tuple(tp.w_kmajor.shape) == (o, kh * kw, icpg_p)
+    assert tp.w_kmajor.dtype == torch.int8 and tp.w_kmajor.is_contiguous()
+    w = tp.w.numpy()
+    for ky in range(kh):
+        for kx in range(kw):
+            np.testing.assert_array_equal(
+                tp.w_kmajor[:, ky * kw + kx, :icpg].numpy(), w[ky, kx].T)
+    assert not tp.w_kmajor[..., icpg:].any()
+    want = (tp.bias_folded.numpy().astype(np.int64)
+            - 128 * w.astype(np.int64).sum(axis=(0, 1, 2))
+            + 128 * kh * kw * icpg * tp.kzp_biased)
+    np.testing.assert_array_equal(tp.bias_c.numpy(),
+                                  ((want + 2**31) & 0xFFFFFFFF) - 2**31)
+
+
+@pytest.mark.parametrize("kzp", [128, 103, 0, 255])
+@pytest.mark.parametrize("case", list(KMAJOR_CASES))
+def test_conv_kmajor_sum_matches_q8conv2d(case, kzp):
+    """izp 121: every padded tap gathers the raw zero point, which the
+    folded c counts; channels past Icpg gather 0."""
+    h, w, g, icpg, ocpg, k, s, pad, d = KMAJOR_CASES[case]
+    jp, tp = kmajor_pair(case, 121, kzp)
+    jr, tr = requant_pair("q31", g * ocpg)
+    a = u8(2, h, w, g * icpg)
+    kw = dict(strides=(s, s), padding=pad, dilation=(d, d))
+    acc = conv_kmajor_acc(torch.from_numpy(a), tp, (s, s), pad, (d, d))
+    np.testing.assert_array_equal(
+        acc, plain_conv_acc(torch.from_numpy(a), tp, (s, s), pad, (d, d)))
+    want = np.asarray(jconv.q8conv2d(jnp.asarray(a), jp, jr, **kw))
+    got = apply_requant(torch.from_numpy(acc), tr).numpy()
+    np.testing.assert_array_equal(got.reshape(want.shape), want)

@@ -2,7 +2,10 @@
 package: nn.packing.pack_gemm_weights, nn.gemm.q8gemm_acc / q8gemm, and
 the q8gemm kernel's plain version against the XLA path and both Pallas
 GEMM kernels (run in interpret mode, as tests/test_kernels_pallas.py
-does).  Inputs come from a numpy seed; comparisons are exact."""
+does); the packed fields the tensor-core kernel reads (K-major weights and
+the raw-uint8 bias) and the sum it forms from them, whole and split over
+K; the wrapper's block-shape and split-K plan.  Inputs come from a numpy
+seed; comparisons are exact."""
 
 import numpy as np
 import pytest
@@ -19,9 +22,11 @@ from qnnpack_tpu.nn.requant_dispatch import make_requant_params as jmake
 from qnnpack_tpu.quant.params import \
     compute_per_channel_fp32_params as jper_channel
 from qnnpack_tpu_torch import kernels as tkernels
+from qnnpack_tpu_torch.kernels import q8gemm as tq8gemm
 from qnnpack_tpu_torch.kernels.q8gemm import q8gemm_cuda, q8gemm_plain
 from qnnpack_tpu_torch.nn import gemm as tgemm
 from qnnpack_tpu_torch.nn import packing as tpacking
+from qnnpack_tpu_torch.nn.requant_dispatch import apply_requant
 from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params as tmake
 from qnnpack_tpu_torch.quant.params import \
     compute_per_channel_fp32_params as tper_channel
@@ -146,3 +151,108 @@ def test_large_accumulators_wrap_like_int32():
     want = np.asarray(jax.jit(jgemm.q8gemm_acc)(jnp.asarray(a), jp))
     got = tgemm.q8gemm_acc(torch.from_numpy(a), tp)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# The tensor-core kernels' form of the same sum (csrc/imma_tile.cuh): raw
+# uint8 A, K-major weights zero-padded to the 64-byte K step, and
+# c = bias' - 128 colsum(W') + 128 K kzp', all mod 2^32.
+
+def kmajor_acc(a, tp, split_steps=None):
+    """sum_k A W'_kmajor + c - kzp' sum_k A in int64 mod 2^32, as an int64
+    array holding the wrapped int32 value; with `split_steps`, the K steps
+    of 64 are summed in parts of that many steps and the parts added mod
+    2^32, as split-K does."""
+    wk = tp.w_kmajor.numpy().astype(np.int64)
+    kp = wk.shape[1]
+    a64 = np.zeros(a.shape[:-1] + (kp,), np.int64)
+    a64[..., :a.shape[-1]] = a
+    step = tpacking.K_STEP * (split_steps or kp)
+    prod = np.zeros(a.shape[:-1] + (wk.shape[0],), np.int64)
+    for k0 in range(0, kp, step):
+        part = a64[..., k0:k0 + step] @ wk[:, k0:k0 + step].T
+        prod = (prod + part) & 0xFFFFFFFF
+    acc = (prod + tp.bias_c.numpy().astype(np.int64)
+           - tp.kzp_biased * a64.sum(axis=-1, keepdims=True))
+    return ((acc + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+@pytest.mark.parametrize("izp,kzp", [(128, 128), (121, 103), (0, 255),
+                                     (255, 0)])
+@pytest.mark.parametrize("n,k", [(16, 27), (33, 64), (7, 1), (5, 130)])
+def test_kmajor_weights_are_w_transposed_and_padded(n, k, izp, kzp):
+    _, tp = make_weights(n, k, izp, kzp)
+    kp = -(-k // 64) * 64
+    assert tuple(tp.w_kmajor.shape) == (n, kp)
+    assert tp.w_kmajor.dtype == torch.int8 and tp.w_kmajor.is_contiguous()
+    np.testing.assert_array_equal(tp.w_kmajor[:, :k].numpy(), tp.w.numpy().T)
+    assert not tp.w_kmajor[:, k:].any()
+    w = tp.w.numpy().astype(np.int64)
+    want = (tp.bias_folded.numpy().astype(np.int64) - 128 * w.sum(axis=0)
+            + 128 * k * (kzp - 128))
+    np.testing.assert_array_equal(tp.bias_c.numpy(),
+                                  (((want + 2**31) & 0xFFFFFFFF) - 2**31))
+    assert tp.bias_c.dtype == torch.int32
+
+
+@pytest.mark.parametrize("scheme", ["q31", "fp32", "per_channel"])
+@pytest.mark.parametrize("kzp", [128, 103, 0, 255])
+@pytest.mark.parametrize("m,k,n", [(37, 45, 19), (5, 77, 3), (9, 130, 129),
+                                   (3, 1, 7), (11, 200, 24)])
+def test_kmajor_sum_matches_reference(m, k, n, kzp, scheme):
+    jp, tp = make_weights(n, k, 121, kzp)
+    jr, tr = requant_pair(scheme, n)
+    a = u8(m, k)
+    acc = kmajor_acc(a, tp)
+    np.testing.assert_array_equal(
+        acc, tgemm.q8gemm_acc(torch.from_numpy(a), tp).numpy())
+    want = np.asarray(jgemm.q8gemm(jnp.asarray(a), jp, jr))
+    got = apply_requant(torch.from_numpy(acc), tr)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("split_steps", [1, 2, 3])
+def test_kmajor_sum_split_over_k_is_exact(split_steps):
+    """Split-K's parts, added mod 2^32 in any grouping, give the whole."""
+    _, tp = make_weights(21, 400, 7, 90)
+    a = u8(13, 400)
+    np.testing.assert_array_equal(kmajor_acc(a, tp, split_steps),
+                                  kmajor_acc(a, tp))
+
+
+@pytest.mark.parametrize("kzp", [128, 0])
+def test_kmajor_sum_wraps_like_int32(kzp):
+    # test_large_accumulators_wrap_like_int32's operands, in the kernels'
+    # form: the accumulator passes 2^31 and wraps the same way.
+    k, n = 64, 8
+    kernel = np.zeros((n, k), np.uint8)
+    bias = np.full(n, 2**31 - 5, np.int64).astype(np.int32)
+    jp = jpacking.pack_gemm_weights(kernel, bias, 0, kzp)
+    tp = tpacking.pack_gemm_weights(kernel, bias, 0, kzp)
+    a = np.full((3, k), 255, np.uint8)
+    want = np.asarray(jax.jit(jgemm.q8gemm_acc)(jnp.asarray(a), jp))
+    np.testing.assert_array_equal(kmajor_acc(a, tp), want)
+
+
+@pytest.mark.parametrize("m,n,k,groups,want_tile,want_split", [
+    (16384, 2304, 768, 1, 3, False),   # BERT b128 qkv: 128-byte stages
+    (6272, 1280, 320, 1, 0, False),    # MobileNetV2 b128 head: K < 512
+    (1605632, 96, 16, 1, 0, False),    # MobileNetV2 b128 expand
+    (401408, 24, 144, 1, 1, False),    # N <= 64: 128 x 64
+    (128, 768, 3072, 1, 2, True),      # BERT b1 ffn2: 64 x 64, split-K
+    (49, 512, 4608, 1, 2, True),       # ResNet-18 b1 7x7x512 3x3
+    (784, 20, 80, 3, 2, False),        # ShuffleNet b1 grouped 1x1
+    (1, 1000, 512, 1, 2, True),        # FC at batch 1
+    (1088, 256, 70000, 1, 2, True),    # K past 65,536: split for exactness
+    (1, 1, 1, 1, 2, False),
+])
+def test_tile_plan(m, n, k, groups, want_tile, want_split):
+    steps = tpacking.round_up(k) // tpacking.K_STEP
+    tile, splits, per = tq8gemm.tile_plan(m, n, steps, groups, 132)
+    assert (tile, splits > 1) == (want_tile, want_split)
+    shallow = tq8gemm.tile_plan(m, n, steps, groups, 132, deep=False)
+    assert shallow == ((0 if tile == 3 else tile), splits, per)
+    assert per <= tq8gemm.MAX_CHAIN_STEPS
+    assert (splits - 1) * per < steps <= splits * per
+    bm, bn = tq8gemm.TILES[tile]
+    blocks = -(-m // bm) * -(-n // bn) * groups
+    assert splits == 1 or blocks * splits <= 132 or k > 65536

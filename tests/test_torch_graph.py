@@ -206,6 +206,26 @@ def test_zoo_model_matches_jax(name, size, weights):
     np.testing.assert_array_equal(got.numpy(), jax_forward(jp, js, x))
 
 
+@pytest.mark.parametrize("name", ["resnet18", "squeezenet_v11"])
+def test_params_from_jax_gives_the_kernel_fields_of_raw_packing(name):
+    """params_from_jax derives the same K-major weights and raw-uint8 bias
+    as the port's builder packing the raw weights, conv and GEMM alike."""
+    jp, _ = jax_model(name, 5)
+    tp, ts = getattr(tzoo, name)(np.random.default_rng(5), device="cpu")
+    ported = tgraph.params_from_jax(jax.tree.map(np.asarray, jp), ts,
+                                    device="cpu")
+    checked = 0
+    for own, got in zip(tp, ported):
+        if own is None:
+            assert got is None
+            continue
+        assert type(own) is type(got)
+        assert torch.equal(got.w_kmajor, own.w_kmajor)
+        assert torch.equal(got.bias_c, own.bias_c)
+        checked += 1
+    assert checked > 10
+
+
 def test_resnet18_entry_224_matches_jax():
     # The entry point's model: seed 0, 224, fp32, the same example input.
     rng = np.random.default_rng(0)
