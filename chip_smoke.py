@@ -18,8 +18,13 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
      (g = 2, 3, 4, 8), izp != 128, all three q8bmm zero-point cases, odd N
      and rows off a 4-byte boundary; for q8gemm and q8conv every block
      shape and split-K plan of kernels/q8gemm.py:tile_plan (each must be
-     exercised), K = 1 to 70,000 (sums past 2^31), bases 8 bytes off 16:
-     torch.equal, zero tolerance (the integer math is exact);
+     exercised), K = 1 to 70,000 (sums past 2^31), bases 8 bytes off 16,
+     split-K q8gemm launches in flight on two streams at once; every
+     instance of q8dwconv (4 or 1 channels a thread x 3x3 stride 1, 3x3
+     stride 2 or any window) and both block shapes of q8stem must run, as
+     the wrappers record what each launch named to its kernel
+     (q8dwconv_cuda.instance, q8stem_cuda.tile): torch.equal, zero
+     tolerance (the integer math is exact);
   3. for each model, batch 1: the forward on the card must equal the plain
      CPU forward byte for byte (logits [1, 1000] for the image models,
      hidden states [1, 128, 768] for BERT, not constant);
@@ -155,6 +160,12 @@ def conv_plan(p, m, sms):
     from qnnpack_tpu_torch.kernels.q8gemm import tile_plan
     steps, deep = conv_steps(p)
     return tile_plan(m, p.group_output_channels, steps, p.groups, sms, deep)
+
+
+def dw_tag(inst):
+    """The q8dwconv instance as [4 ch, 3x3s1]."""
+    v, window = inst
+    return f"[{v} ch, {window}]"
 
 
 def plan_tag(plan):
@@ -334,6 +345,7 @@ def check_kernels(torch, err):
               kernel, None, 255, 0, device=cuda), rp),
           K.q8gemm_plain(a, pack_gemm_weights(kernel, None, 255, 0), rp))
     del a, kernel
+    check_two_streams(torch, err, u8, sms)
 
     # q8conv: (label, B, H, W, C, O, k, stride, padding, dilation, izp,
     # kzp, scheme, rp kwargs)
@@ -469,18 +481,31 @@ def check_kernels(torch, err):
         raise AssertionError(f"plans not covered: {want_plans - plans}")
 
     # q8stem (stride 2, kzp 128): (label, B, H, W, C, O, k, padding, izp,
-    # scheme, rp kwargs)
+    # scheme, rp kwargs).  O = 24 and 32 take the 128 x 32 block, 64 and
+    # 100 (two column blocks) the 128 x 64 one; C = 1..4, odd sizes, a
+    # window row of 36 bytes (9 x 4, K rows of 64).
     stem_cases = [
         ("resnet 7x7 224x224x3->64", 1, 224, 224, 3, 64, 7,
          ((2, 3), (2, 3)), 128, "fp32", {"qmin": 128}),
         ("mnv2 3x3 224x224x3->32", 1, 224, 224, 3, 32, 3, s2, 128, "fp32",
          relu6),
+        ("shufflenet 3x3 224x224x3->24 izp 121 precise", 1, 224, 224, 3, 24,
+         3, p1, 121, "precise", {}),
         ("per-channel izp 121 7x7 19x21x3->32", 2, 19, 21, 3, 32, 7,
          ((2, 3), (2, 3)), 121, "pc", {}),
         ("q31 odd 23x17x4->24 5x5", 3, 23, 17, 4, 24, 5, ((2, 2), (2, 2)),
          121, "q31", {}),
         ("C=1 O=8 15x15 pad 1", 1, 15, 15, 1, 8, 3, p1, 7, "gemmlowp", {}),
+        ("C=2 O=64 7x7 odd 17x15 per-channel izp 7", 2, 17, 15, 2, 64, 7,
+         ((3, 3), (3, 3)), 7, "pc", {}),
+        ("C=4 O=100 3x3 9x11 q31 izp 250", 1, 9, 11, 4, 100, 3, s2, 250,
+         "q31", {}),
+        ("C=4 9x9 (36-byte rows) 21x19->16 izp 121", 1, 21, 19, 4, 16, 9,
+         ((4, 4), (4, 4)), 121, "fp32", {}),
+        ("C=1 O=32 7x7 izp 0 gemmlowp 5x31", 2, 5, 31, 1, 32, 7,
+         ((3, 3), (0, 6)), 0, "gemmlowp", {}),
     ]
+    stem_tiles = set()
     for label, bsz, h, w, c, o, k, pad, izp, scheme, rkw in stem_cases:
         kernel = u8(o, k, k, c)
         bias = rng.integers(-9000, 9000, o).astype(np.int32)
@@ -490,25 +515,66 @@ def check_kernels(torch, err):
                               rp, pad)
         got = K.q8stem_cuda(a.to(cuda), pack_conv_weights(
             kernel, bias, izp, 128, device=cuda), rp, pad)
-        check("q8stem", label, got, want)
+        stem_tiles.add(K.q8stem_cuda.tile)
+        check("q8stem", f"{label} [128x{K.q8stem_cuda.tile}]", got, want)
+    # A base 5 bytes off 16 and a tensor that ends off 16: the staged
+    # segments at both ends are copied byte by byte.
+    kernel, a = u8(32, 3, 3, 3), torch.from_numpy(u8(1, 13, 11, 3))
+    rp = rparams("q31", 32, {})
+    check("q8stem", "base + 5 bytes 13x11x3->32 pad 1",
+          K.q8stem_cuda(placed(a, 5), pack_conv_weights(
+              kernel, None, 121, 128, device=cuda), rp, p1),
+          K.q8stem_plain(a, pack_conv_weights(kernel, None, 121, 128), rp,
+                         p1))
+    if stem_tiles != {32, 64}:
+        raise AssertionError(f"q8stem block shapes run: {stem_tiles}")
 
-    # q8dwconv: (label, B, H, W, C, stride, padding, dilation, izp, kzp,
-    # scheme)
+    # q8dwconv: (label, B, H, W, C, k, stride, padding, dilation, izp, kzp,
+    # scheme).  C = 96, 40, 144, 960 take 4 channels a thread, C = 33 one;
+    # Wo = 7, 11, 13, 14 end in a part strip.
+    p2 = ((2, 2), (2, 2))
     dw_cases = [
-        ("112x112x96 s2 pad(0,1)", 1, 112, 112, 96, 2, s2, 1, 128, 128,
+        ("112x112x96 s2 pad(0,1)", 1, 112, 112, 96, 3, 2, s2, 1, 128, 128,
          "fp32"),
-        ("14x14x576 s1 pad 1", 1, 14, 14, 576, 1, p1, 1, 128, 128, "fp32"),
-        ("kzp 103, q31 13x11x24 s1", 1, 13, 11, 24, 1, p1, 1, 121, 103,
+        ("14x14x576 s1 pad 1", 1, 14, 14, 576, 3, 1, p1, 1, 128, 128,
+         "fp32"),
+        ("kzp 103, q31 13x11x24 s1", 1, 13, 11, 24, 3, 1, p1, 1, 121, 103,
          "q31"),
-        ("per-channel kzp 90 14x14x40 s2", 1, 14, 14, 40, 2, p1, 1, 121, 90,
-         "pc"),
-        ("dilation 2 gemmlowp 12x10x16", 1, 12, 10, 16, 2, ((2, 2), (2, 2)),
-         2, 7, 200, "gemmlowp"),
-        ("batch 3, precise 9x7x33 s2 pad(0,1)", 3, 9, 7, 33, 2, s2, 1, 250,
-         140, "precise"),
+        ("per-channel kzp 90 14x14x40 s2", 1, 14, 14, 40, 3, 2, p1, 1, 121,
+         90, "pc"),
+        ("dilation 2 gemmlowp 12x10x16", 1, 12, 10, 16, 3, 2, p2, 2, 7, 200,
+         "gemmlowp"),
+        ("batch 3, precise 9x7x33 s2 pad(0,1)", 3, 9, 7, 33, 3, 2, s2, 1,
+         250, 140, "precise"),
+        ("kzp 10 fp32 7x7x960 s1", 2, 7, 7, 960, 3, 1, p1, 1, 121, 10,
+         "fp32"),
+        ("shufflenet 28x28x60 s1", 4, 28, 28, 60, 3, 1, p1, 1, 128, 128,
+         "fp32"),
+        ("shufflenet 56x56x60 s2 kzp 77 q31", 2, 56, 56, 60, 3, 2, p1, 1,
+         121, 77, "q31"),
+        ("9x13x33 s1 kzp 200 gemmlowp (Wo 13)", 2, 9, 13, 33, 3, 1, p1, 1,
+         3, 200, "gemmlowp"),
+        ("5x5 C=33 pad 2 per-channel kzp 60", 2, 11, 13, 33, 5, 1, p2, 1,
+         121, 60, "pc"),
+        ("5x5 C=60 s2 q31 kzp 200 izp 7", 1, 15, 14, 60, 5, 2, p2, 1, 7, 200,
+         "q31"),
+        ("dilation 2 C=33 s1 precise kzp 90", 1, 12, 11, 33, 3, 1, p2, 2,
+         250, 90, "precise"),
+        ("b10 56x56x144 s1 pad 1", 10, 56, 56, 144, 3, 1, p1, 1,
+         128, 128, "fp32"),
+        ("b16 112x112x96 s2 pad(0,1) kzp 140", 16, 112, 112,
+         96, 3, 2, s2, 1, 121, 140, "fp32"),
+        ("b12 56x56x33 s1 q31 kzp 77", 12, 56, 56, 33, 3, 1, p1,
+         1, 121, 77, "q31"),
+        ("b48 56x56x33 s2 per-channel", 48, 56, 56, 33, 3, 2,
+         s2, 1, 128, 128, "pc"),
+        ("C=1 (groups 1) 9x8 s1 q31 kzp 103", 2, 9, 8, 1, 3, 1, p1, 1, 121,
+         103, "q31"),
     ]
-    for label, bsz, h, w, c, s, pad, d, izp, kzp, scheme in dw_cases:
-        kernel = u8(c, 3, 3, 1)
+    dw_seen = set()
+    for (label, bsz, h, w, c, k, s, pad, d, izp, kzp,
+         scheme) in dw_cases:
+        kernel = u8(c, k, k, 1)
         bias = rng.integers(-9000, 9000, c).astype(np.int32)
         rp = rparams(scheme, c, {})
         a = torch.from_numpy(u8(bsz, h, w, c))
@@ -518,7 +584,25 @@ def check_kernels(torch, err):
             **args)
         got = K.q8dwconv_cuda(a.to(cuda), pack_conv_weights(
             kernel, bias, izp, kzp, groups=c, device=cuda), rp, **args)
-        check("q8dwconv", label, got, want)
+        dw_seen.add(K.q8dwconv_cuda.instance)
+        check("q8dwconv", f"{label} {dw_tag(K.q8dwconv_cuda.instance)}",
+              got, want)
+    # A base one byte off a word: byte loads for C % 4 == 0.
+    kernel, a = u8(96, 3, 3, 1), torch.from_numpy(u8(2, 15, 14, 96))
+    rp = rparams("q31", 96, {})
+    args = dict(strides=(2, 2), padding=s2)
+    got = K.q8dwconv_cuda(placed(a, 1), pack_conv_weights(
+        kernel, None, 121, 103, groups=96, device=cuda), rp, **args)
+    dw_seen.add(K.q8dwconv_cuda.instance)
+    check("q8dwconv", f"base + 1 byte 15x14x96 s2 "
+          f"{dw_tag(K.q8dwconv_cuda.instance)}", got,
+          K.q8dwconv_plain(a, pack_conv_weights(kernel, None, 121, 103,
+                                                groups=96), rp, **args))
+    want_dw = {(v, window) for v in (4, 1)
+               for window in ("3x3s1", "3x3s2", "any")}
+    if dw_seen != want_dw:
+        raise AssertionError(f"q8dwconv instances not run: "
+                             f"{want_dw - dw_seen}")
 
     # u8maxpool: (label, shape, pool, strides, padding, dilation, clamp)
     pool_cases = [
@@ -662,6 +746,43 @@ def check_kernels(torch, err):
         check("u8clamp", label, K.u8clamp_cuda(placed(x, offset), params),
               K.u8clamp_plain(x, params))
     torch.cuda.synchronize()
+
+
+def check_two_streams(torch, err, u8, sms, rounds=40):
+    """Split-K q8gemm launches in flight on two streams at once (BERT's
+    ffn2 at batch 1, 128x3072->768): each stream counts its tiles' splits
+    on counters of its own, so every output equals the plain version."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.nn.packing import pack_gemm_weights
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+
+    m, k, n = 128, 3072, 768
+    plan = gemm_plan(m, n, k, 1, sms)
+    if plan[1] < 2:
+        raise AssertionError(f"{m}x{k}->{n} not split: {plan}")
+    kernel = u8(n, k)
+    bias = np.arange(-n // 2, n - n // 2, dtype=np.int32) * 37
+    rp = make_requant_params("fp32", 0.0037, 117)
+    cuda = torch.device("cuda")
+    packed = pack_gemm_weights(kernel, bias, 128, 128, device=cuda)
+    inputs = [torch.from_numpy(u8(m, k)) for _ in range(2)]
+    wants = [K.q8gemm_plain(x, pack_gemm_weights(kernel, bias, 128, 128), rp)
+             for x in inputs]
+    xs = [x.to(cuda) for x in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(rounds):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(K.q8gemm_cuda(xs[i], packed, rp))
+    torch.cuda.synchronize()
+    for i, want in enumerate(wants):
+        for got in outs[i]:
+            compare(torch, err, "q8gemm", f"stream {i}", got, want,
+                    quiet=True)
+    label = f"two streams x {rounds} ffn2 b1 {plan_tag(plan)}"
+    log(f"  {'q8gemm':10s} {label:44s} equal")
 
 
 # ------------------------------------------------ phase 6: main-path calls
@@ -920,6 +1041,7 @@ def kernel_calls(torch, model, params, spec, x):
             yield dict(
                 kernel="q8dwconv",
                 label=f"{name} {tuple(a.shape)} s{layer.strides[0]}",
+                plan=dw_tag(K.q8dwconv_cuda.instance),
                 run=lambda a=a, p=p, l=layer, kw_=kw_: K.q8dwconv_cuda(
                     a, p, l.rparams, **kw_),
                 plain=lambda a=a, p=p, l=layer, kw_=kw_: K.q8dwconv_plain(
@@ -944,6 +1066,8 @@ def kernel_calls(torch, model, params, spec, x):
                 del cols
             old_route = plan = None
             if kernel == "q8stem":
+                K.q8stem_cuda(a, p, layer.rparams, layer.padding)
+                plan = f"[128x{K.q8stem_cuda.tile}]"
                 run = (lambda a=a, p=p, l=layer: K.q8stem_cuda(
                     a, p, l.rparams, l.padding))
                 plain = (lambda a=a, p=p, l=layer: K.q8stem_plain(
@@ -992,11 +1116,12 @@ def time_main_path(torch, model, params, spec, x, err, plain_repeats):
                                if call["library"] is not None else None))
         if call.get("old_route") is not None:
             row["old_route_ms"] = time_ms(call["old_route"], torch)
-        if call["kernel"] in ("q8gemm", "q8conv"):
+        if call.get("plan") is not None:
+            row["plan"] = call["plan"]
+        if call["kernel"] in ("q8gemm", "q8conv", "q8stem"):
             bound_ms = max(row["bytes"] / HBM_BYTES_PER_S,
                            row["ops"] / INT8_OPS_PER_S) * 1e3
-            row.update(plan=call["plan"],
-                       tops=row["ops"] / (row["ms"] * 1e-3) / 1e12,
+            row.update(tops=row["ops"] / (row["ms"] * 1e-3) / 1e12,
                        bound_share=bound_ms / row["ms"])
         rows.append(row)
         torch.cuda.empty_cache()

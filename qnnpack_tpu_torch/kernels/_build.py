@@ -38,13 +38,13 @@ SIGNATURES = {
     "qnn_q8gemm": [_I, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                    _I, _I, _I, _P, _P,
                    _I, _I, _I, _I, _I, _I, _F, _P],
-    "qnn_q8dwconv": [_I, _P, _P, _P, _P, _P] + [_I] * 16
+    "qnn_q8dwconv": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 18
                     + [_I] * 6 + [_F, _P],
     "qnn_q8vadd": [_I, _P, _P, _P, _I64] + [_I] * 7 + [_P],
     "qnn_q8gavgpool": [_I, _P, _P] + [_I] * 9 + [_P],
     "qnn_q8conv": [_I, _P, _P, _P, _P, _P] + [_I] * 19
                   + [_I, _I, _I, _P, _P] + [_I] * 6 + [_F, _P],
-    "qnn_q8stem": [_I, _P, _P, _P, _P, _P] + [_I] * 12
+    "qnn_q8stem": [_I, _P, _P, _P, _P, _P] + [_I] * 14
                   + [_I] * 6 + [_F, _P],
     "qnn_u8maxpool": [_I, _P, _P] + [_I] * 16 + [_P],
     "qnn_q8avgpool": [_I, _P, _P] + [_I] * 19 + [_P],

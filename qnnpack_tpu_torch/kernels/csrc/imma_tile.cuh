@@ -1,4 +1,4 @@
-// The int8 tensor-core tile shared by q8gemm.cu and q8conv.cu.
+// The int8 tensor-core tile shared by q8gemm.cu, q8conv.cu and q8stem.cu.
 //
 // Both kernels compute, for a block's BM x BN tile of the output,
 //
@@ -22,7 +22,8 @@
 // copies overlap the products, and a launch fills the card only with
 // enough blocks.  Design:
 //   - a cp.async ring in dynamic shared memory, 4 stages of one 64-byte K
-//     step (3 of 128 bytes in the deep 128 x 128 shape); rows padded by 16
+//     step (3 of 128 bytes in the deep 128 x 128 shape, 2 in q8stem.cu's
+//     shapes, whose K is 2-4 steps); rows padded by 16
 //     bytes so that ldmatrix.x4 reads eight 16-byte row segments from
 //     eight distinct bank groups;
 //   - W K-major (each output column's K bytes contiguous, zero past K), so
@@ -62,11 +63,13 @@ constexpr int kStepK = 64;
 constexpr int kMaxChainSteps = 1024;  // 65,536 of K per int32 chain
 
 template <int BM_, int BN_, int WM_, int WN_, int MIN_BLOCKS_,
-          int STEP_ = kStepK>
+          int STEP_ = kStepK, int STAGES_ = STEP_ == kStepK ? 4 : 3>
 struct Tile {
   static constexpr int kStep = STEP_;  // bytes of K per ring stage
   static constexpr int kPitch = kStep + 16;  // shared row pitch (padding)
-  static constexpr int kStages = STEP_ == kStepK ? 4 : 3;
+  static constexpr int kStages = STAGES_;
+  static_assert(kStages >= 2, "the ring refills one stage while another "
+                              "is read");
   static constexpr int kUnits = kStep / kStepK;  // plan units per stage
   static constexpr int BM = BM_;
   static constexpr int BN = BN_;

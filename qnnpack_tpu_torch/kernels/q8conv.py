@@ -94,7 +94,8 @@ def q8conv_cuda(a_u8, packed, rparams, strides=(1, 1),
     scales, rq = _build.requant_args(rparams, o, a_u8.device)
     out = torch.empty((b, ho, wo, o), dtype=torch.uint8, device=a_u8.device)
     steps, deep = conv_steps(packed)
-    work, plan = plan_launch(a_u8.device, b * ho * wo,
+    stream = _build.stream_of(a_u8)
+    work, plan = plan_launch(a_u8.device, stream, b * ho * wo,
                              packed.group_output_channels, steps,
                              packed.groups, deep)
     _build.launch(
@@ -104,7 +105,7 @@ def q8conv_cuda(a_u8, packed, rparams, strides=(1, 1),
         b, h, w, c, ho, wo, o, packed.groups, kh, kw, strides[0],
         strides[1], padding[0][0], padding[1][0], dilation[0], dilation[1],
         packed.input_zero_point, packed.kzp_biased, icpg_p, *plan, *rq,
-        _build.stream_of(a_u8))
+        stream)
     q8conv_cuda.launches += 1
     return out
 

@@ -24,12 +24,11 @@ def _check_depthwise(a_u8, packed):
                          f"{packed.groups} channels")
 
 
-def q8dwconv_plain(a_u8, packed, rparams, strides=(1, 1),
-                   padding=((0, 0), (0, 0)), dilation=(1, 1)):
-    """Plain version of the kernel: uint8 NHWC -> uint8 NHWC.
-
-    acc = bias' + sum_taps A'(tap) * (W'(tap) - kzp'), the input padded with
-    the input zero point."""
+def q8dwconv_acc_plain(a_u8, packed, strides=(1, 1),
+                       padding=((0, 0), (0, 0)), dilation=(1, 1)):
+    """The plain version's int32 accumulator [B, Ho, Wo, C], as an int64
+    tensor holding the wrapped value: bias' + sum_taps A'(tap) * (W'(tap) -
+    kzp'), the input padded with the input zero point."""
     _check_depthwise(a_u8, packed)
     b, h, w, c = a_u8.shape
     kh, kw = packed.kernel_height, packed.kernel_width
@@ -47,8 +46,30 @@ def q8dwconv_plain(a_u8, packed, rparams, strides=(1, 1),
             tap = a[:, y0:y0 + (ho - 1) * sh + 1:sh,
                     x0:x0 + (wo - 1) * sw + 1:sw, :]
             acc = acc + tap * wd[ky * kw + kx]
-    acc = ((acc + 2**31) & 0xFFFFFFFF) - 2**31
-    return apply_requant(acc, rparams)
+    return ((acc + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def q8dwconv_plain(a_u8, packed, rparams, strides=(1, 1),
+                   padding=((0, 0), (0, 0)), dilation=(1, 1)):
+    """Plain version of the kernel: uint8 NHWC -> uint8 NHWC."""
+    return apply_requant(q8dwconv_acc_plain(a_u8, packed, strides, padding,
+                                            dilation), rparams)
+
+
+# The window codes of csrc/q8dwconv.cu's entry.
+WINDOWS = {"any": 0, "3x3s1": 1, "3x3s2": 2}
+
+
+def dw_instance(c, kh, kw, strides, dilation, aligned=True):
+    """The kernel instance of a launch: (channels a thread, window).
+    Channels 4 where C % 4 == 0 and the pointers are aligned (the input and
+    output to words, the record's tables to 16 bytes), else 1; window
+    "3x3s1" or "3x3s2" (3 x 3, dilation 1, equal strides of 1 or 2) or
+    "any"."""
+    v = 4 if c % 4 == 0 and aligned else 1
+    fast = ((kh, kw) == (3, 3) and tuple(dilation) == (1, 1)
+            and strides[0] == strides[1] and strides[0] in (1, 2))
+    return v, f"3x3s{strides[0]}" if fast else "any"
 
 
 def q8dwconv_cuda(a_u8, packed, rparams, strides=(1, 1),
@@ -62,7 +83,8 @@ def q8dwconv_cuda(a_u8, packed, rparams, strides=(1, 1),
                               dilation)
     _build.check_cuda("a", a_u8, torch.uint8, 4)
     _build.check_cuda("w", packed.w, torch.int8, 4)
-    _build.check_cuda("bias_folded", packed.bias_folded, torch.int32, 1)
+    _build.check_cuda("w_dw", packed.w_dw, torch.float32, 2)
+    _build.check_cuda("bias_c", packed.bias_c, torch.int32, 1)
     if packed.w.device != a_u8.device:
         raise ValueError(f"weights on {packed.w.device}, activations on "
                          f"{a_u8.device}")
@@ -71,15 +93,22 @@ def q8dwconv_cuda(a_u8, packed, rparams, strides=(1, 1),
     ho, wo = _build.out_dims(h, w, kh, kw, strides, padding, dilation)
     scales, rq = _build.requant_args(rparams, c, a_u8.device)
     out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=a_u8.device)
+    aligned = (a_u8.data_ptr() % 4 == 0 and out.data_ptr() % 4 == 0
+               and packed.w_dw.data_ptr() % 16 == 0
+               and packed.bias_c.data_ptr() % 16 == 0
+               and (scales is None or scales.data_ptr() % 16 == 0))
+    vec, window = dw_instance(c, kh, kw, strides, dilation, aligned)
     _build.launch(
         "qnn_q8dwconv", a_u8.device.index or 0, a_u8.data_ptr(),
-        packed.w.data_ptr(), packed.bias_folded.data_ptr(),
+        packed.w.data_ptr(), packed.w_dw.data_ptr(), packed.bias_c.data_ptr(),
         None if scales is None else scales.data_ptr(), out.data_ptr(),
         b, h, w, c, ho, wo, kh, kw, strides[0], strides[1], padding[0][0],
-        padding[1][0], dilation[0], dilation[1], packed.izp_biased,
-        packed.kzp_biased, *rq, _build.stream_of(a_u8))
+        padding[1][0], dilation[0], dilation[1], packed.input_zero_point,
+        packed.kzp_biased, vec, WINDOWS[window], *rq, _build.stream_of(a_u8))
     q8dwconv_cuda.launches += 1
+    q8dwconv_cuda.instance = (vec, window)
     return out
 
 
 q8dwconv_cuda.launches = 0
+q8dwconv_cuda.instance = None  # (channels a thread, window) of the last launch

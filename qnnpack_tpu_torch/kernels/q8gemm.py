@@ -78,25 +78,31 @@ def _sm_count(device) -> int:
 _counters = {}
 
 
-def _split_counters(device, blocks: int) -> torch.Tensor:
-    """The device's split-K counters, one int32 per output tile, all 0: the
-    kernel's last block of each tile sets its counter back to 0.  Launches
-    on one device go to one stream, so two never use them at once."""
-    counters = _counters.get(device)
+def _split_counters(device, stream: int, blocks: int) -> torch.Tensor:
+    """The split-K counters of launches on `stream` (a CUDA stream handle)
+    of `device`: one int32 per output tile, all 0 between launches (the
+    kernel's last block of each tile sets its counter back to 0).  Launches
+    on one stream run in order, so only launches on another stream could
+    be in flight at once, and those count on counters of their own.  The
+    wrappers launch on the current stream, so the zeroing below is queued
+    ahead of the first launch that reads them."""
+    key = (torch.device(device), stream)
+    counters = _counters.get(key)
     if counters is None or counters.numel() < blocks:
         counters = torch.zeros(max(blocks, 4096), dtype=torch.int32,
                                device=device)
-        _counters[device] = counters
+        _counters[key] = counters
     return counters
 
 
-def plan_launch(device, m: int, n: int, steps: int, groups: int = 1,
-                deep: bool = True):
-    """tile_plan on `device` and its split-K scratch: (workspace or None,
-    [tile, splits, steps per split, workspace ptr, counters ptr]), the
-    arguments that the C entries of q8gemm and q8conv take.  The workspace
-    holds each split's int32 partial tile; once the caller drops it, the
-    caching allocator hands it only to later work on the same stream."""
+def plan_launch(device, stream: int, m: int, n: int, steps: int,
+                groups: int = 1, deep: bool = True):
+    """tile_plan on `device` and its split-K scratch for a launch on
+    `stream`: (workspace or None, [tile, splits, steps per split, workspace
+    ptr, counters ptr]), the arguments that the C entries of q8gemm and
+    q8conv take.  The workspace holds each split's int32 partial tile; once
+    the caller drops it, the caching allocator hands it only to later work
+    on the same stream."""
     tile, splits, per = tile_plan(m, n, steps, groups, _sm_count(device),
                                   deep)
     if splits == 1:
@@ -106,7 +112,7 @@ def plan_launch(device, m: int, n: int, steps: int, groups: int = 1,
     work = torch.empty(blocks * splits * (bm * bn + bm), dtype=torch.int32,
                        device=device)
     return work, [tile, splits, per, work.data_ptr(),
-                  _split_counters(device, blocks).data_ptr()]
+                  _split_counters(device, stream, blocks).data_ptr()]
 
 
 def gemm_acc_plain(a_u8: torch.Tensor, w: torch.Tensor,
@@ -153,13 +159,13 @@ def q8gemm_cuda(a_u8: torch.Tensor, packed: PackedGemmWeights, rparams):
     m = a_u8.shape[0]
     scales, rq = _build.requant_args(rparams, packed.n, a_u8.device)
     out = torch.empty((m, packed.n), dtype=torch.uint8, device=a_u8.device)
-    work, plan = plan_launch(a_u8.device, m, packed.n, kp // K_STEP)
+    stream = _build.stream_of(a_u8)
+    work, plan = plan_launch(a_u8.device, stream, m, packed.n, kp // K_STEP)
     _build.launch(
         "qnn_q8gemm", a_u8.device.index or 0, a_u8.data_ptr(),
         packed.w_kmajor.data_ptr(), packed.bias_c.data_ptr(),
         None if scales is None else scales.data_ptr(), out.data_ptr(),
-        m, packed.n, packed.k, kp, packed.kzp_biased, *plan, *rq,
-        _build.stream_of(a_u8))
+        m, packed.n, packed.k, kp, packed.kzp_biased, *plan, *rq, stream)
     q8gemm_cuda.launches += 1
     return out
 

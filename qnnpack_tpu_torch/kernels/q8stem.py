@@ -42,31 +42,45 @@ def q8stem_plain(a_u8, packed, rparams, padding=((0, 0), (0, 0))):
     return q8conv_plain(a_u8, packed, rparams, (2, 2), padding)
 
 
+def stem_tile(out_channels: int) -> int:
+    """Output channels of the kernel's block for a launch: 32 for O <= 32
+    (O = 24 or 32 in one column block), else 64."""
+    return 32 if out_channels <= 32 else 64
+
+
 def q8stem_cuda(a_u8, packed, rparams, padding=((0, 0), (0, 0))):
     """Quantized stride-2 stem conv: uint8 NHWC -> uint8 NHWC."""
     check_stem(a_u8, packed)
     if a_u8.device.type == "cpu":
         return q8stem_plain(a_u8, packed, rparams, padding)
     _build.check_cuda("a", a_u8, torch.uint8, 4)
-    _build.check_cuda("w", packed.w, torch.int8, 4)
-    _build.check_cuda("bias_folded", packed.bias_folded, torch.int32, 1)
-    if packed.w.device != a_u8.device:
-        raise ValueError(f"weights on {packed.w.device}, activations on "
-                         f"{a_u8.device}")
+    _build.check_cuda("w_stem", packed.w_stem, torch.int8, 2)
+    _build.check_cuda("bias_c", packed.bias_c, torch.int32, 1)
+    if packed.w_stem.device != a_u8.device:
+        raise ValueError(f"weights on {packed.w_stem.device}, activations "
+                         f"on {a_u8.device}")
     b, h, w, c = a_u8.shape
     kh, kw = packed.kernel_height, packed.kernel_width
-    o = packed.w.shape[-1]
+    o, k = packed.w_stem.shape
+    row_pitch = k // kh
+    if row_pitch * kh != k or row_pitch % 32 or row_pitch < kw * c:
+        raise ValueError(f"w_stem shape {(o, k)} does not fit {kh}x{kw} "
+                         f"taps of {c} channels")
     ho, wo = _build.out_dims(h, w, kh, kw, (2, 2), padding)
     scales, rq = _build.requant_args(rparams, o, a_u8.device)
     out = torch.empty((b, ho, wo, o), dtype=torch.uint8, device=a_u8.device)
+    tile = stem_tile(o)
     _build.launch(
         "qnn_q8stem", a_u8.device.index or 0, a_u8.data_ptr(),
-        packed.w.data_ptr(), packed.bias_folded.data_ptr(),
+        packed.w_stem.data_ptr(), packed.bias_c.data_ptr(),
         None if scales is None else scales.data_ptr(), out.data_ptr(),
         b, h, w, c, ho, wo, o, kh, kw, padding[0][0], padding[1][0],
-        packed.izp_biased, *rq, _build.stream_of(a_u8))
+        packed.input_zero_point, row_pitch, tile, *rq,
+        _build.stream_of(a_u8))
     q8stem_cuda.launches += 1
+    q8stem_cuda.tile = tile
     return out
 
 
 q8stem_cuda.launches = 0
+q8stem_cuda.tile = None  # output channels of the last launch's block

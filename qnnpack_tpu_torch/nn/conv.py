@@ -34,6 +34,10 @@ from .dtypes import biased_zero_point, u8_to_biased_i8
 from .packing import (PackedGemmWeights, as_tensor, fold_bias, round_up,
                       set_kernel_fields)
 
+# The q8stem kernel's K order pads each kernel row to a multiple of this
+# many bytes (two rows of a 3- or 7-wide RGB window fill one 64-byte step).
+STEM_ROW_STEP = 32
+
 
 @dataclasses.dataclass(frozen=True)
 class PackedConvWeights:
@@ -45,6 +49,15 @@ class PackedConvWeights:
                  channel run zero-padded to Icpg_p = Icpg rounded up to the
                  kernels' 64-byte K step (derived; nn/packing.py)
     bias_c:      int32 [O] kmajor_bias of bias_folded, K = Kh*Kw*Icpg
+                 (derived)
+    w_dw:        float32 [Kh*Kw, C] W' - kzp', the q8dwconv kernel's
+                 weights, on a record with one channel per group (a
+                 one-channel record of groups 1 too); None otherwise
+                 (derived)
+    w_stem:      int8 [O, Kh*Rs] of a record that can be a stem (groups 1,
+                 Icpg <= 4): kernel row ky's Kw*Icpg bytes in [kx, c] order
+                 at ky*Rs, zero up to Rs = Kw*Icpg rounded up to
+                 STEM_ROW_STEP, the q8stem kernel's K order; None otherwise
                  (derived)
     """
 
@@ -61,6 +74,10 @@ class PackedConvWeights:
                                                compare=False)
     bias_c: torch.Tensor = dataclasses.field(init=False, repr=False,
                                              compare=False)
+    w_dw: torch.Tensor | None = dataclasses.field(init=False, repr=False,
+                                                  compare=False)
+    w_stem: torch.Tensor | None = dataclasses.field(init=False, repr=False,
+                                                    compare=False)
 
     def __post_init__(self):
         kh, kw, icpg, o = self.w.shape
@@ -70,6 +87,19 @@ class PackedConvWeights:
         set_kernel_fields(self, wk,
                           self.w.to(torch.int64).sum(dim=(0, 1, 2)),
                           kh * kw * icpg)
+        w_dw = w_stem = None
+        if icpg == 1 and self.group_output_channels == 1:
+            w_dw = (self.w.reshape(kh * kw, o).to(torch.float32)
+                    - self.kzp_biased)
+        if self.groups == 1 and icpg <= MAX_INPUT_CHANNELS:
+            rs = round_up(kw * icpg, STEM_ROW_STEP)
+            w_stem = torch.zeros((o, kh, rs), dtype=torch.int8,
+                                 device=self.w.device)
+            w_stem[..., :kw * icpg] = self.w.permute(3, 0, 1, 2).reshape(
+                o, kh, kw * icpg)
+            w_stem = w_stem.reshape(o, kh * rs)
+        object.__setattr__(self, "w_dw", w_dw)
+        object.__setattr__(self, "w_stem", w_stem)
 
     @property
     def izp_biased(self) -> int:

@@ -23,7 +23,8 @@ from qnnpack_tpu.quant.params import \
 from qnnpack_tpu_torch import kernels as tkernels
 from qnnpack_tpu_torch.kernels.q8conv import q8conv_cuda, q8conv_plain
 from qnnpack_tpu_torch.kernels.q8gemm import gemm_acc_plain
-from qnnpack_tpu_torch.kernels.q8stem import q8stem_cuda, q8stem_plain
+from qnnpack_tpu_torch.kernels.q8stem import (q8stem_cuda, q8stem_plain,
+                                              stem_tile)
 from qnnpack_tpu_torch.nn import conv as tconv
 from qnnpack_tpu_torch.nn.requant_dispatch import apply_requant
 from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params as tmake
@@ -398,3 +399,98 @@ def test_conv_kmajor_sum_matches_q8conv2d(case, kzp):
     want = np.asarray(jconv.q8conv2d(jnp.asarray(a), jp, jr, **kw))
     got = apply_requant(torch.from_numpy(acc), tr).numpy()
     np.testing.assert_array_equal(got.reshape(want.shape), want)
+
+
+# The stem kernel's K order (csrc/q8stem.cu): kernel row ky's Kw*C window
+# bytes at ky*Rs, zero up to Rs = Kw*C rounded up to 32, times the record's
+# w_stem [O, Kh*Rs], + c.  kzp' = 0, so there is no row sum.
+
+def stem_field_acc(a, tp, padding):
+    """int64 array of the stem kernel's wrapped accumulators [B*Ho*Wo, O]:
+    the im2col rows scattered into the field's padded K order."""
+    kh, kw, c = tp.kernel_height, tp.kernel_width, tp.group_input_channels
+    o, k = tp.w_stem.shape
+    rs = k // kh
+    cols, _ = tconv.im2col(a, tp, (2, 2), padding)
+    rows = np.zeros((cols.shape[0], kh, rs), np.int64)
+    rows[..., :kw * c] = cols.numpy().astype(np.int64).reshape(-1, kh, kw * c)
+    acc = (rows.reshape(-1, k) @ tp.w_stem.numpy().astype(np.int64).T
+           + tp.bias_c.numpy())
+    return ((acc + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+STEM_FIELD_CASES = {
+    # h, w, c, o, k, padding
+    **STEM_CASES,
+    "resnet_7x7_c3": (19, 21, 3, 64, 7, ((2, 3), (2, 3))),
+    "c2_5x5": (13, 12, 2, 40, 5, ((2, 2), (2, 2))),
+    "c4_9x9_rows_of_36": (21, 19, 4, 16, 9, ((4, 4), (4, 4))),
+}
+
+
+@pytest.mark.parametrize("case", list(STEM_FIELD_CASES))
+def test_stem_field_is_w_by_kernel_row_padded(case):
+    _, _, c, o, k, _ = STEM_FIELD_CASES[case]
+    _, tp = make_weights(o, k, k, c, 121, 128)
+    rs = -(-k * c // 32) * 32
+    assert tp.w_stem.dtype == torch.int8 and tp.w_stem.is_contiguous()
+    assert tuple(tp.w_stem.shape) == (o, k * rs)
+    field = tp.w_stem.numpy().reshape(o, k, rs)
+    np.testing.assert_array_equal(
+        field[..., :k * c],
+        tp.w.numpy().transpose(3, 0, 1, 2).reshape(o, k, k * c))
+    assert not field[..., k * c:].any()
+    assert tp.w_dw is None
+
+
+@pytest.mark.parametrize("groups,c", [(2, 3), (1, 5), (1, 64)])
+def test_stem_field_only_on_records_that_can_be_stems(groups, c):
+    tp = tconv.pack_conv_weights(u8(4 * groups, 3, 3, c), None, 128, 128,
+                                 groups)
+    assert tp.w_stem is None
+
+
+@pytest.mark.parametrize("izp", [128, 121, 0, 255])
+@pytest.mark.parametrize("case", list(STEM_FIELD_CASES))
+def test_stem_field_sum_matches_q8stem_plain(case, izp):
+    """im2col(A) in the field's K order times the field, + bias_c, is the
+    plain version's accumulator; requantized, it is q8stem_pallas's output
+    (interpret mode)."""
+    h, w, c, o, k, pad = STEM_FIELD_CASES[case]
+    jp, tp = make_weights(o, k, k, c, izp, 128)
+    jr, tr = requant_pair("q31" if izp % 2 else "per_channel", o)
+    a = u8(2, h, w, c)
+    acc = stem_field_acc(torch.from_numpy(a), tp, pad)
+    np.testing.assert_array_equal(
+        acc, plain_conv_acc(torch.from_numpy(a), tp, (2, 2), pad))
+    want = np.asarray(q8stem_pallas(jnp.asarray(a), jp, jr, padding=pad,
+                                    interpret=True))
+    got = apply_requant(torch.from_numpy(acc), tr).numpy()
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("case", ["7x7_pad23", "3x3_pad01", "odd_c4"])
+def test_stem_field_on_records_from_params_from_jax(case):
+    """A record made from the JAX package's packed record (the path of
+    params_from_jax) derives the same stem field and bias_c."""
+    from qnnpack_tpu_torch.models import graph as tgraph
+    _, _, c, o, k, _ = STEM_CASES[case]
+    kernel = u8(o, k, k, c)
+    bias = RNG.integers(-20000, 20000, o, dtype=np.int64).astype(np.int32)
+    jp = jconv.pack_conv_weights(kernel, bias, tgraph.ACT_ZP,
+                                 tgraph.KERNEL_ZP)
+    own = tconv.pack_conv_weights(kernel, bias, tgraph.ACT_ZP,
+                                  tgraph.KERNEL_ZP)
+    got = tgraph.packed_from_jax(
+        "stem", {"w": np.asarray(jp.w), "bias_folded":
+                 np.asarray(jp.bias_folded)}, kernel, gemm=False, groups=1,
+        device="cpu")
+    assert got.w_stem is not None
+    assert torch.equal(got.w_stem, own.w_stem)
+    assert torch.equal(got.bias_c, own.bias_c)
+
+
+@pytest.mark.parametrize("o,want", [(8, 32), (24, 32), (32, 32), (33, 64),
+                                    (64, 64), (100, 64)])
+def test_stem_tile_by_output_channels(o, want):
+    assert stem_tile(o) == want

@@ -256,3 +256,20 @@ def test_tile_plan(m, n, k, groups, want_tile, want_split):
     bm, bn = tq8gemm.TILES[tile]
     blocks = -(-m // bm) * -(-n // bn) * groups
     assert splits == 1 or blocks * splits <= 132 or k > 65536
+
+
+@pytest.mark.parametrize("blocks", [1, 4096, 5000])
+def test_split_counters_are_per_stream(blocks, monkeypatch):
+    """Two streams of one device get counter storage of their own, so
+    split-K launches in flight on both never count on the same tiles; one
+    stream keeps its counters (zeroed) across launches."""
+    monkeypatch.setattr(tq8gemm, "_counters", {})
+    dev = torch.device("cpu")
+    first = tq8gemm._split_counters(dev, 0x1000, blocks)
+    second = tq8gemm._split_counters(dev, 0x2000, blocks)
+    assert first.data_ptr() != second.data_ptr()
+    assert first.numel() >= blocks and second.numel() >= blocks
+    assert first.dtype == torch.int32 and not first.any()
+    assert tq8gemm._split_counters(dev, 0x1000, blocks) is first
+    assert tq8gemm._split_counters("cpu", 0x2000, 1) is second
+    assert len(tq8gemm._counters) == 2
