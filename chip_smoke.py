@@ -23,8 +23,13 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
      instance of q8dwconv (4 or 1 channels a thread x 3x3 stride 1, 3x3
      stride 2 or any window) and both block shapes of q8stem must run, as
      the wrappers record what each launch named to its kernel
-     (q8dwconv_cuda.instance, q8stem_cuda.tile): torch.equal, zero
-     tolerance (the integer math is exact);
+     (q8dwconv_cuda.instance, q8stem_cuda.tile); q8bmm on strided views
+     (BERT's scores and context at batch 1 as views of a real qkv tensor,
+     the context written through out=, the tiny config's dh = 16 at stride
+     96, bases 8 bytes off 16, K-major B with za != 0, K = 70,000 with sums
+     past 2^31); q8vadd on all 65,536 (a, b) pairs under three parameter
+     sets, 1, 15, 16 and 17 bytes and a base 1 byte off 16: torch.equal,
+     zero tolerance (the integer math is exact);
   3. for each model, batch 1: the forward on the card must equal the plain
      CPU forward byte for byte (logits [1, 1000] for the image models,
      hidden states [1, 128, 768] for BERT, not constant);
@@ -37,7 +42,9 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
                     q8dwconv 16, q8avgpool 3, q8vadd 13, q8gavgpool 1
        BERT         q8gemm 48, q8bmm 24, u8rmax 12, u8lut32norm 12,
                     q8vadd 24
-     and every other kernel 0;
+     and every other kernel 0; and under torch.profiler one BERT forward
+     must launch no CUDA kernel that is not the port's (no head-transpose
+     or other copy);
   5. serve single-sample requests through qnnpack_tpu_torch.serving
      .InferenceServer (16 MobileNetV2, 8 ResNet-18, 8 ShuffleNet, 8 BERT);
      every answer must equal its row of a direct batch forward;
@@ -65,7 +72,8 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
      q8conv row also holds its plan, TOP/s and share of its bound.  The
      MobileNetV2 stem's old route (im2col + q8gemm) is timed beside q8stem
      at its shape, and the data movement outside the kernels (the channel
-     shuffles and concats, BERT's head transposes) as a sum per forward.
+     shuffles and concats) as a sum per forward.  BERT's q8bmm runs on the
+     forward's own views of the qkv output.
 
 Prints the {"kernels": [...]} line (launches over one batch-1 forward of
 each path, times summed over one batch-128 forward of each path; u8clamp's
@@ -112,7 +120,7 @@ OPS_LAUNCHES = _counts(q8vadd=1, u8clamp=1, u8rmax=1, u8lut32norm=1)
 SERVED = {"mobilenet_v2": 16, "resnet18": 8, "shufflenet_v1_g3": 8,
           "bert_base_s128": 8}
 # Timed rows that are not kernels.
-DATA_MOVEMENT = ("x8zip", "concat", "transpose")
+DATA_MOVEMENT = ("x8zip", "concat")
 SOURCES = {
     "q8gemm": ("qnnpack_tpu_torch/kernels/csrc/q8gemm.cu",
                "qnnpack_tpu/kernels/q8gemm_small.py:134"),
@@ -650,13 +658,38 @@ def check_kernels(torch, err):
               K.q8avgpool_cuda(x.to(cuda), params, pool, strides, pad),
               K.q8avgpool_plain(x, params, pool, strides, pad))
 
-    for label, shape, params in [
-            ("1x56x56x24 residual", (1, 56, 56, 24),
-             compute_add_quant_params(128, 128, 128, 1.0, 1.0)),
-            ("zp 10/200, scales .125/1.75", (3, 7, 11, 5),
-             compute_add_quant_params(10, 200, 128, 0.125, 1.75, 20, 240))]:
-        a, b = torch.from_numpy(u8(*shape)), torch.from_numpy(u8(*shape))
-        check("q8vadd", label, K.q8vadd_cuda(a.to(cuda), b.to(cuda), params),
+    # q8vadd: every (a, b) pair as a 256 x 256 tensor under BERT's
+    # parameters, the zp 10/200 set and the largest shift (31); sizes about
+    # a 16-byte vector, a base 1 byte off 16 (byte path), and the shapes of
+    # BERT's and ShuffleNet's adds.
+    bert_add = compute_add_quant_params(128, 128, 128, 1.0, 1.0)
+    zp_add = compute_add_quant_params(10, 200, 128, 0.125, 1.75, 20, 240)
+    wide_add = compute_add_quant_params(77, 1, 250, 2**-10, 1e-4)
+    if wide_add.shift != 31:
+        raise AssertionError(f"large-shift set has shift {wide_add.shift}")
+    pa = torch.arange(256, dtype=torch.uint8)[:, None].expand(256, 256)
+    pairs = (pa.contiguous(), pa.t().contiguous())
+    vadd_cases = [
+        ("all 65,536 pairs, BERT's params", pairs, 0, bert_add),
+        ("all 65,536 pairs, zp 10/200, scales .125/1.75", pairs, 0, zp_add),
+        ("all 65,536 pairs, shift 31", pairs, 0, wide_add),
+        ("1 byte", (1,), 0, zp_add),
+        ("15 bytes", (15,), 0, zp_add),
+        ("16 bytes", (16,), 0, wide_add),
+        ("17 bytes", (17,), 0, bert_add),
+        ("base + 1 byte 4099", (4099,), 1, zp_add),
+        ("1x56x56x24 residual", (1, 56, 56, 24), 0, bert_add),
+        ("zp 10/200 3x7x11x5", (3, 7, 11, 5), 0, zp_add),
+        ("bert b1 1x128x768", (1, 128, 768), 0, bert_add),
+        ("shufflenet 1x28x28x240", (1, 28, 28, 240), 0, bert_add),
+    ]
+    for label, shape, offset, params in vadd_cases:
+        if isinstance(shape, tuple) and isinstance(shape[0], torch.Tensor):
+            a, b = shape
+        else:
+            a, b = torch.from_numpy(u8(*shape)), torch.from_numpy(u8(*shape))
+        check("q8vadd", label, K.q8vadd_cuda(placed(a, offset),
+                                             placed(b, offset), params),
               K.q8vadd_plain(a, b, params))
 
     for label, shape, params in [
@@ -696,6 +729,7 @@ def check_kernels(torch, err):
         check("q8bmm", label,
               K.q8bmm_cuda(a.to(cuda), b.to(cuda), za, zb, rp),
               K.q8bmm_plain(a, b, za, zb, rp))
+    check_bmm_views(torch, err, u8, rparams)
 
     # u8rmax and u8lut32norm: (label, R, N, offset of the rows, scale);
     # BERT's score rows, odd N (rows off the 4-byte boundary), rows of 0
@@ -746,6 +780,84 @@ def check_kernels(torch, err):
         check("u8clamp", label, K.u8clamp_cuda(placed(x, offset), params),
               K.u8clamp_plain(x, params))
     torch.cuda.synchronize()
+
+
+def check_bmm_views(torch, err, u8, rparams):
+    """q8bmm on strided views: BERT's scores and context at batch 1 from a
+    real [1, 128, 3, 12, 64] qkv tensor (K-major k, N-major v, the context
+    written through out= into a [1, 128, 768] buffer), the tiny config's
+    dh = 16 at row stride 96, bases 8 bytes off 16, a K-major B with za != 0
+    and K = 70,000 with za = zb = 0, whose sums pass 2^31."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.kernels.q8bmm import bmm_layout
+    from qnnpack_tpu_torch.models.bert import head_views
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+    cuda = torch.device("cuda")
+
+    def check(label, a, b, za, zb, rp, kmajor):
+        a_card, b_card = a.to(cuda), b.to(cuda)  # strides kept
+        if bmm_layout(a_card, b_card)[4] != kmajor:
+            raise AssertionError(f"q8bmm {label}: B not read as labelled")
+        compare(torch, err, "q8bmm", label,
+                K.q8bmm_cuda(a_card, b_card, za, zb, rp),
+                K.q8bmm_plain(a, b, za, zb, rp))
+
+    def views(bsz, s, nh, dh, offset=0):
+        """(q, k, v) views of one qkv tensor on the card and on the CPU."""
+        qkv = torch.from_numpy(u8(bsz * s, 3 * nh * dh))
+        on_card = torch.empty(qkv.numel() + offset, dtype=torch.uint8,
+                              device=cuda)[offset:].view(qkv.shape)
+        on_card.copy_(qkv)
+        return (head_views(on_card, bsz, s, nh, dh),
+                head_views(qkv, bsz, s, nh, dh))
+
+    for label, (bsz, s, nh, dh), offset in [
+            ("bert b1", (1, 128, 12, 64), 0),
+            ("tiny dh 16 stride 96", (2, 16, 2, 16), 0),
+            ("base + 8 bytes bert b1", (1, 128, 12, 64), 8)]:
+        (q, k, v), (qc, kc, vc) = views(bsz, s, nh, dh, offset)
+        probs_shape = torch.empty((bsz, nh, s, s), dtype=torch.uint8,
+                                  device=cuda)
+        if not bmm_layout(q, k)[4] or bmm_layout(probs_shape, v)[4]:
+            raise AssertionError(f"{label}: k not K-major or v not N-major")
+        for scheme in ("fp32", "q31"):
+            rp = rparams(scheme, s, {})
+            want = K.q8bmm_plain(qc, kc, 128, 128, rp)
+            got = K.q8bmm_cuda(q, k, 128, 128, rp)
+            compare(torch, err, "q8bmm", f"{label} scores views {scheme}",
+                    got, want)
+            probs = torch.from_numpy(u8(bsz, nh, s, s))
+            rp = rparams(scheme, dh, {})
+            want = K.q8bmm_plain(probs, vc, 0, 128, rp)
+            ctx = torch.empty((bsz, s, nh * dh), dtype=torch.uint8,
+                              device=cuda)
+            view = ctx.view(bsz, s, nh, dh).permute(0, 2, 1, 3)
+            K.q8bmm_cuda(probs.to(cuda), v, 0, 128, rp, out=view)
+            compare(torch, err, "q8bmm", f"{label} context out= {scheme}",
+                    ctx, want.permute(0, 2, 1, 3).reshape(ctx.shape))
+
+    # A K-major B (a transposed [G, N, K]) with za != 0: the column sums.
+    a = torch.from_numpy(u8(6, 70, 96))
+    b = torch.from_numpy(u8(6, 40, 96)).transpose(1, 2)
+    check("K-major B za 37 zb 201 per-channel 6x70x96x40", a, b, 37, 201,
+          rparams("pc", 40, {}), True)
+    check("K-major B za 200 zb 0 q31 ragged 3x33x77x9", a[:3, :33, :77],
+          torch.from_numpy(u8(3, 9, 77)).transpose(1, 2), 200, 0,
+          rparams("q31", 9, {}), True)
+
+    # K = 70,000 at za = zb = 0: every column of b is 255 or random, every
+    # other row of a 255, so the sums pass 2^31 and the int32 chains must be
+    # added in uint32.  A scale of 2^-25 keeps the outputs off the clamp.
+    g, m, k, n = 2, 33, 70000, 40
+    a = torch.full((g, m, k), 255, dtype=torch.uint8)
+    a[:, 1::2] = torch.from_numpy(u8(g, len(range(1, m, 2)), k))
+    b = torch.full((g, n, k), 255, dtype=torch.uint8)
+    b[:, 1::3] = torch.from_numpy(u8(g, len(range(1, n, 3)), k))
+    rp = make_requant_params("fp32", 2.0**-25, 128)
+    check("K=70000 za=zb=0 K-major B, sums past 2^31", a,
+          b.transpose(1, 2), 0, 0, rp, True)
+    check("K=70000 za=zb=0 N-major B, sums past 2^31", a,
+          b.transpose(1, 2).contiguous(), 0, 0, rp, False)
 
 
 def check_two_streams(torch, err, u8, sms, rounds=40):
@@ -851,10 +963,12 @@ def conv2d_yardstick(torch, a, p, strides, padding):
 def bert_calls(torch, params, spec, x):
     """kernel_calls' records for the BERT encoder, walking its forward
     (models/bert.py:bert_encoder_forward) layer by layer: each record's
-    `run` gives the input of the next.  The head split (q, k, v) and merge
-    are the forward's copies, timed as data movement."""
+    `run` gives the input of the next.  q8bmm runs on the forward's own
+    views of the qkv output and writes the context through out= into a
+    [B, S, H] buffer, as the forward does: there is no head-transpose copy
+    to time."""
     from qnnpack_tpu_torch import kernels as K
-    from qnnpack_tpu_torch.models.bert import ACT_ZP
+    from qnnpack_tpu_torch.models.bert import ACT_ZP, head_views
     from qnnpack_tpu_torch.nn.dtypes import u8_to_biased_i8
     cfg = spec["cfg"]
     b, s, h = x.shape
@@ -870,15 +984,18 @@ def bert_calls(torch, params, spec, x):
                     bytes=m * k + k * p.n + 4 * p.n + m * p.n,
                     ops=2 * m * p.n * k)
 
-    def bmm(name, a3, b3, za, zb, rp):
-        g, m, k = a3.shape
-        n = b3.shape[-1]
-        af = u8_to_biased_i8(a3).float()
-        bf = u8_to_biased_i8(b3).float()
+    def bmm(name, a4, b4, za, zb, rp, out=None):
+        *lead, m, k = a4.shape
+        n = b4.shape[-1]
+        g = lead[0] * lead[1]
+        # The yardstick's float32 operands are contiguous copies, made
+        # here, outside the timed window.
+        af = u8_to_biased_i8(a4).float().reshape(g, m, k)
+        bf = u8_to_biased_i8(b4).float().reshape(g, k, n)
         return dict(kernel="q8bmm",
                     label=f"{name} {g}x[{m}x{k}]x[{k}x{n}] za {za} zb {zb}",
-                    run=lambda: K.q8bmm_cuda(a3, b3, za, zb, rp),
-                    plain=lambda: K.q8bmm_plain(a3, b3, za, zb, rp),
+                    run=lambda: K.q8bmm_cuda(a4, b4, za, zb, rp, out=out),
+                    plain=lambda: K.q8bmm_plain(a4, b4, za, zb, rp),
                     library=lambda: torch.bmm(af, bf),
                     bytes=g * (m * k + k * n + m * n), ops=2 * g * m * n * k)
 
@@ -889,10 +1006,6 @@ def bert_calls(torch, params, spec, x):
                     plain=lambda: K.q8vadd_plain(a, r, qp), library=None,
                     bytes=3 * n, ops=4 * n)
 
-    def moved(name, fn, t):
-        return dict(kernel="transpose", label=f"{name} {tuple(t.shape)}",
-                    run=fn, bytes=2 * t.numel())
-
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lut = spec["softargmax_lut"]
     for i, layer in enumerate(params):
@@ -900,16 +1013,7 @@ def bert_calls(torch, params, spec, x):
         rec = gemm(f"l{i}.qkv", x.reshape(b * s, h), layer["qkv"],
                    spec["rp_proj"])
         yield rec
-        qkv = rec["run"]().reshape(b, s, 3, nh, dh)
-
-        def split(qkv=qkv):
-            return [qkv[:, :, j].permute(*order).reshape(b * nh, *shape)
-                    .contiguous()
-                    for j, order, shape in ((0, (0, 2, 1, 3), (s, dh)),
-                                            (1, (0, 2, 3, 1), (dh, s)),
-                                            (2, (0, 2, 1, 3), (s, dh)))]
-        yield moved(f"l{i}.split_qkv", split, qkv)
-        q, k, v = split()
+        q, k, v = head_views(rec["run"](), b, s, nh, dh)
         rec = bmm(f"l{i}.scores", q, k, ACT_ZP, ACT_ZP, spec["rp_scores"])
         yield rec
         rows = rec["run"]().reshape(-1, s)
@@ -920,7 +1024,8 @@ def bert_calls(torch, params, spec, x):
                    library=lambda rows=rows: torch.amax(rows, dim=-1),
                    bytes=r * n + r, ops=r * n)
         rmax = K.u8rmax_cuda(rows)
-        rec = dict(kernel="u8lut32norm", label=f"l{i}.lut32norm {r}x{n}",
+        rec = dict(kernel="u8lut32norm",
+                   label=f"l{i}.lut32norm {r}x{n}",
                    run=lambda rows=rows, rmax=rmax: K.u8lut32norm_cuda(
                        rows, rmax, lut),
                    plain=lambda rows=rows, rmax=rmax: K.u8lut32norm_plain(
@@ -928,16 +1033,14 @@ def bert_calls(torch, params, spec, x):
                    library=None, bytes=2 * r * n + r + 4 * 256,
                    ops=6 * r * n)
         yield rec
-        probs = rec["run"]().reshape(b * nh, s, s)
-        rec = bmm(f"l{i}.context", probs, v, 0, ACT_ZP, spec["rp_ctx"])
+        probs = rec["run"]().reshape(b, nh, s, s)
+        ctx = torch.empty((b, s, h), dtype=torch.uint8, device=x.device)
+        rec = bmm(f"l{i}.context", probs, v, 0, ACT_ZP, spec["rp_ctx"],
+                  out=ctx.view(b, s, nh, dh).permute(0, 2, 1, 3))
         yield rec
-        ctx = rec["run"]()
-
-        def merge(ctx=ctx):
-            return ctx.reshape(b, nh, s, dh).permute(0, 2, 1, 3).reshape(
-                b * s, h).contiguous()
-        yield moved(f"l{i}.merge_heads", merge, ctx)
-        rec = gemm(f"l{i}.out", merge(), layer["out"], spec["rp_proj"])
+        rec["run"]()
+        rec = gemm(f"l{i}.out", ctx.reshape(b * s, h), layer["out"],
+                   spec["rp_proj"])
         yield rec
         rec = vadd(f"l{i}.add_attn", rec["run"]().reshape(b, s, h), resid,
                    spec["add"])
@@ -1097,7 +1200,7 @@ def kernel_calls(torch, model, params, spec, x):
 def time_main_path(torch, model, params, spec, x, err, plain_repeats):
     """Time every kernel launch of the forward on `x`, its plain version
     and yardstick; each kernel's output must equal its plain version's.
-    Data movement (shuffles, concats, head transposes) is timed alone."""
+    Data movement (shuffles, concats) is timed alone."""
     rows = []
     for call in kernel_calls(torch, model, params, spec, x):
         if call["kernel"] in DATA_MOVEMENT:
@@ -1169,6 +1272,66 @@ def check_output(torch, model, y, y_cpu):
         raise AssertionError(f"{model} output is constant")
     log(f"    equal; output min {int(y_cpu.min())} max {int(y_cpu.max())}, "
         f"{len(torch.unique(y_cpu))} distinct values")
+
+
+def check_only_port_kernels(torch, fn, params, x, expected):
+    """One forward under torch.profiler: every CUDA kernel it launches must
+    be one of the port's (a __global__ function named <kernel>_kernel in
+    kernels/csrc/), and their number must equal the launch counts, which
+    also shows that the profiler saw the device.  So no copy or other
+    PyTorch kernel runs between the port's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    own = tuple(f"{name}_kernel" for name in KERNEL_NAMES) + (
+        "dw3x3_kernel", "dw_generic_kernel")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(params, x)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    foreign = sorted({name for name in kernels
+                      if not any(sym in name for sym in own)})
+    ours = sum(1 for name in kernels if any(sym in name for sym in own))
+    log(f"    profiler: {len(kernels)} kernels, {ours} of the port's, "
+        f"{len(foreign)} other")
+    if foreign:
+        raise AssertionError(f"kernels not of the port: {foreign[:8]}")
+    if ours != sum(expected.values()):
+        raise AssertionError(f"profiler saw {ours} of the port's kernels, "
+                             f"launch counts say {sum(expected.values())}")
+
+
+PROFILE_FLAG = "--profile-bert-b1"
+
+
+def profile_bert_b1() -> int:
+    """The child process of phase 4's profiler check: BERT's batch-1
+    forward, once to warm up, then under check_only_port_kernels.  It runs
+    in a process of its own so that the profiler's tracing cannot touch the
+    launches that phase 7 times."""
+    import torch
+    from qnnpack_tpu_torch.entry import entry
+    model = "bert_base_s128"
+    with torch.inference_mode():
+        fn, (params, x) = entry(model=model)
+        fn(params, x)
+        torch.cuda.synchronize()
+        check_only_port_kernels(torch, fn, params, x,
+                                EXPECTED_LAUNCHES[model])
+    return 0
+
+
+def run_profiled_bert_b1():
+    """Phase 4's profiler check, in a child process (profile_bert_b1)."""
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          PROFILE_FLAG], capture_output=True, text=True,
+                         timeout=600, cwd=Path(__file__).resolve().parent)
+    for line in res.stdout.splitlines():
+        log(line)
+    if res.returncode != 0:
+        raise AssertionError(f"profiled BERT forward failed (rc "
+                             f"{res.returncode}):\n{res.stderr[-3000:]}")
 
 
 def check_ops(torch, err):
@@ -1296,6 +1459,8 @@ def main() -> int:
             if launches[model] != EXPECTED_LAUNCHES[model]:
                 raise AssertionError(f"launches {launches[model]} != "
                                      f"{EXPECTED_LAUNCHES[model]}")
+            if model == "bert_base_s128":
+                run_profiled_bert_b1()
 
     rng = np.random.default_rng(7)
     served_batches = {}
@@ -1417,4 +1582,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_bert_b1() if sys.argv[1:] == [PROFILE_FLAG] else main())

@@ -4,7 +4,14 @@ PyTorch version.
 Port of qnnpack_tpu/nn/gemm.py:q8bmm, which the JAX package leaves to XLA
 (it has no Pallas form); the port runs it on a hand-written kernel, as it
 runs every op of a path.  The CUDA source, with its design and what bounds
-it, is csrc/q8bmm.cu.
+it, is csrc/q8bmm.cu: int8 tensor cores on raw uint8 operands.
+
+The kernel reads strided views, so BERT's attention takes its q, k and v
+straight out of the qkv projection and writes its context into a [B, S, H]
+buffer, with no head-transpose copies.  `bmm_layout` is the one place that
+decides how a view is read: A needs K at stride 1; B is read K-major (K at
+stride 1, BERT's key view) or N-major (N at stride 1, BERT's value view and
+any contiguous B); an output view needs N at stride 1.
 
 `q8bmm_cuda` takes the plain version for CPU tensors only.  For CUDA
 tensors it launches the kernel or raises; there is no fallback.
@@ -24,7 +31,7 @@ def bmm_acc_plain(a_u8: torch.Tensor, b_u8: torch.Tensor, a_zero_point: int,
     """int32 accumulator [..., M, N] of uint8 [..., M, K] x uint8 [..., K, N]:
     sum_k (a - za)(b - zb) = A'B' - zb' rowsum(A') - za' colsum(B')
     + K za' zb' on biased int8, as an int64 tensor holding the wrapped int32
-    value.
+    value.  Any strides.
 
     The product runs as a float64 matmul, exact here (|sum| < 2^53)."""
     a = u8_to_biased_i8(a_u8)
@@ -42,37 +49,116 @@ def bmm_acc_plain(a_u8: torch.Tensor, b_u8: torch.Tensor, a_zero_point: int,
 
 def q8bmm_plain(a_u8: torch.Tensor, b_u8: torch.Tensor, a_zero_point: int,
                 b_zero_point: int, rparams):
-    """Plain version of the kernel: uint8 [G, M, K] x [G, K, N] -> [G, M, N]."""
+    """Plain version of the kernel: uint8 [..., M, K] x [..., K, N] ->
+    [..., M, N], a new contiguous tensor."""
     return apply_requant(bmm_acc_plain(a_u8, b_u8, a_zero_point,
                                        b_zero_point), rparams)
 
 
-def q8bmm_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor, a_zero_point: int,
-               b_zero_point: int, rparams):
-    """Batched quantized matmul uint8 [G, M, K] x uint8 [G, K, N] -> uint8
-    [G, M, N] (any requant scheme; a per-channel scale is per column N)."""
-    if a_u8.dim() != 3 or b_u8.dim() != 3:
-        raise ValueError(f"expected [G, M, K] and [G, K, N], got "
+def _stride(t: torch.Tensor, dim: int) -> int:
+    """t's stride along `dim`, 0 where that axis has one element (its
+    stride is never used, so it must not narrow a copy)."""
+    return 0 if t.shape[dim] == 1 else t.stride(dim)
+
+
+def _batch(t: torch.Tensor):
+    """(z0 stride, z1 stride) of a [G, ...] or [G0, G1, ...] view."""
+    if t.dim() == 3:
+        return 0, _stride(t, 0)
+    return _stride(t, 0), _stride(t, 1)
+
+
+def bmm_layout(a_u8: torch.Tensor, b_u8: torch.Tensor, out=None):
+    """How the kernel reads A [..., M, K] and B [..., K, N] and writes
+    [..., M, N], for 3-D or 4-D views with the same leading axes.
+
+    Returns (g, g1, a strides (z0, z1, row), b strides (z0, z1, ld),
+    b_kmajor, out strides (z0, z1, row)); `out` None stands for a new
+    contiguous output.  B is N-major (ld = the stride of K) where N is at
+    stride 1, else K-major (ld = the stride of N) where K is; an axis of
+    one element counts as at stride 1.  Raises ValueError on any other
+    layout."""
+    if a_u8.dim() not in (3, 4) or b_u8.dim() != a_u8.dim():
+        raise ValueError(f"expected [G, M, K] and [G, K, N] (or 4-D), got "
                          f"{tuple(a_u8.shape)} and {tuple(b_u8.shape)}")
-    g, m, k = a_u8.shape
-    if b_u8.shape[0] != g or b_u8.shape[1] != k:
+    lead = a_u8.shape[:-2]
+    m, k = a_u8.shape[-2:]
+    if b_u8.shape[:-2] != lead or b_u8.shape[-2] != k:
         raise ValueError(f"operands {tuple(a_u8.shape)} and "
                          f"{tuple(b_u8.shape)} do not chain")
+    n = b_u8.shape[-1]
+    if _stride(a_u8, -1) not in (0, 1):
+        raise ValueError(f"a needs K at stride 1, has strides "
+                         f"{a_u8.stride()}")
+    if _stride(b_u8, -1) in (0, 1):
+        b_kmajor, ldb = False, _stride(b_u8, -2)
+    elif _stride(b_u8, -2) in (0, 1):
+        b_kmajor, ldb = True, _stride(b_u8, -1)
+    else:
+        raise ValueError(f"b needs K or N at stride 1, has strides "
+                         f"{b_u8.stride()}")
+    g1 = lead[-1]
+    g = g1 * (lead[0] if len(lead) == 2 else 1)
+    if out is None:
+        so = (m * n * g1 if len(lead) == 2 else 0, m * n, n)
+    else:
+        if tuple(out.shape) != (*lead, m, n) or out.dtype != torch.uint8:
+            raise ValueError(f"out {tuple(out.shape)} {out.dtype}, want "
+                             f"{(*lead, m, n)} uint8")
+        if _stride(out, -1) not in (0, 1) or (m > 1 and
+                                              out.stride(-2) < n):
+            raise ValueError(f"out needs N at stride 1 and rows that do "
+                             f"not overlap, has strides {out.stride()}")
+        so = (*_batch(out), _stride(out, -2))
+    return (g, g1, (*_batch(a_u8), _stride(a_u8, -2)),
+            (*_batch(b_u8), ldb), b_kmajor, so)
+
+
+def check_strided_cuda(name: str, t, ndim) -> None:
+    """Raise unless `t` is a uint8 CUDA tensor of rank in `ndim` (any
+    strides: bmm_layout judges them)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be on a CUDA device, got {t.device}")
+    if t.dtype != torch.uint8:
+        raise ValueError(f"{name} must be torch.uint8, got {t.dtype}")
+    if t.dim() not in ndim:
+        raise ValueError(f"{name} must have rank in {ndim}, got "
+                         f"{tuple(t.shape)}")
+
+
+def q8bmm_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor, a_zero_point: int,
+               b_zero_point: int, rparams, out=None):
+    """Batched quantized matmul uint8 [G, M, K] x uint8 [G, K, N] -> uint8
+    [G, M, N], or the same with two leading axes (any requant scheme; a
+    per-channel scale is per column N).  The operands may be strided views
+    as `bmm_layout` allows; `out`, a view of that shape with N at stride 1,
+    receives the result and is returned."""
+    layout = bmm_layout(a_u8, b_u8, out)
     if a_u8.device.type == "cpu" and b_u8.device.type == "cpu":
-        return q8bmm_plain(a_u8, b_u8, a_zero_point, b_zero_point, rparams)
-    _build.check_cuda("a", a_u8, torch.uint8, 3)
-    _build.check_cuda("b", b_u8, torch.uint8, 3)
+        y = q8bmm_plain(a_u8, b_u8, a_zero_point, b_zero_point, rparams)
+        return y if out is None else out.copy_(y)
+    check_strided_cuda("a", a_u8, (3, 4))
+    check_strided_cuda("b", b_u8, (3, 4))
     if a_u8.device != b_u8.device:
         raise ValueError(f"a on {a_u8.device}, b on {b_u8.device}")
-    n = b_u8.shape[2]
-    za = biased_zero_point(a_zero_point)
-    zb = biased_zero_point(b_zero_point)
+    *lead, m, k = a_u8.shape
+    n = b_u8.shape[-1]
+    if out is None:
+        out = torch.empty((*lead, m, n), dtype=torch.uint8,
+                          device=a_u8.device)
+    else:
+        check_strided_cuda("out", out, (a_u8.dim(),))
+        if out.device != a_u8.device:
+            raise ValueError(f"out on {out.device}, a on {a_u8.device}")
+    g, g1, sa, sb, b_kmajor, so = layout
+    if g == 0 or m == 0 or n == 0:
+        return out
     scales, rq = _build.requant_args(rparams, n, a_u8.device)
-    out = torch.empty((g, m, n), dtype=torch.uint8, device=a_u8.device)
     _build.launch(
         "qnn_q8bmm", a_u8.device.index or 0, a_u8.data_ptr(), b_u8.data_ptr(),
-        None if scales is None else scales.data_ptr(), out.data_ptr(), g, m,
-        n, k, za, zb, *rq, _build.stream_of(a_u8))
+        None if scales is None else scales.data_ptr(), out.data_ptr(), g, g1,
+        m, n, k, *sa, *sb, int(b_kmajor), *so, a_zero_point, b_zero_point,
+        *rq, _build.stream_of(a_u8))
     q8bmm_cuda.launches += 1
     return out
 

@@ -4,11 +4,13 @@ Every op runs on a kernel of this package on the GPU:
   - Q/K/V and output projections and the FFN: q8gemm over prepacked
     weights (the reference's fully-connected path);
   - attention scores and context: q8bmm (activation x activation, the
-    biased-int8 zero-point algebra on both sides);
+    zero-point algebra on both sides);
   - attention softmax: u8softargmax, the u8rmax and u8lut32norm kernels;
   - residuals: q8vadd.
-The head split and merge (q/k/v and context transposes) are PyTorch copies,
-as the JAX code's transposes are XLA copies.
+There is no head split or merge copy (the JAX code's transposes are XLA
+copies): q8bmm reads q, k and v as strided views of the qkv projection's
+output (`head_views`) and writes the context straight into its [B, S, H]
+buffer through a [B, nh, S, dh] view.
 
 The builder makes the JAX builder's numpy RNG calls in the same order, so
 one seed gives the same raw weights.  The 1/sqrt(dh) score scaling folds
@@ -100,6 +102,16 @@ def build_bert_encoder(rng: np.random.Generator, cfg: BertConfig | None = None,
     return params, spec
 
 
+def head_views(qkv, b: int, s: int, nh: int, dh: int):
+    """q [B, nh, S, dh], k [B, nh, dh, S] and v [B, nh, S, dh] as views of
+    the qkv projection's [B * S, 3 H] output (no copy): q and v have dh at
+    stride 1 (q8bmm's A, and its N-major B), k has dh, its K axis, at
+    stride 1 (q8bmm's K-major B)."""
+    qkv = qkv.reshape(b, s, 3, nh, dh)
+    return (qkv[:, :, 0].permute(0, 2, 1, 3), qkv[:, :, 1].permute(0, 2, 3, 1),
+            qkv[:, :, 2].permute(0, 2, 1, 3))
+
+
 def bert_encoder_forward(params, spec, x_u8):
     """uint8 [B, S, H] -> uint8 [B, S, H]."""
     cfg: BertConfig = spec["cfg"]
@@ -109,17 +121,16 @@ def bert_encoder_forward(params, spec, x_u8):
     for layer in params:
         resid = x
         qkv = q8gemm(x.reshape(b * s, h), layer["qkv"], spec["rp_proj"])
-        qkv = qkv.reshape(b, s, 3, nh, dh)
-        q = qkv[:, :, 0].permute(0, 2, 1, 3)  # [B, nh, S, dh]
-        k = qkv[:, :, 1].permute(0, 2, 3, 1)  # [B, nh, dh, S]
-        v = qkv[:, :, 2].permute(0, 2, 1, 3)  # [B, nh, S, dh]
+        q, k, v = head_views(qkv, b, s, nh, dh)
 
         scores = q8bmm(q, k, ACT_ZP, ACT_ZP, spec["rp_scores"])  # [B,nh,S,S]
         probs = u8softargmax(scores, spec["softargmax_lut"])     # scale 1/256
-        ctx = q8bmm(probs, v, 0, ACT_ZP, spec["rp_ctx"])         # [B,nh,S,dh]
-        ctx = ctx.permute(0, 2, 1, 3).reshape(b * s, h)
+        ctx = torch.empty((b, s, h), dtype=torch.uint8, device=x.device)
+        q8bmm(probs, v, 0, ACT_ZP, spec["rp_ctx"],
+              out=ctx.view(b, s, nh, dh).permute(0, 2, 1, 3))
 
-        attn = q8gemm(ctx, layer["out"], spec["rp_proj"]).reshape(b, s, h)
+        attn = q8gemm(ctx.reshape(b * s, h), layer["out"],
+                      spec["rp_proj"]).reshape(b, s, h)
         x = q8vadd_cuda(attn, resid, spec["add"])
 
         resid2 = x

@@ -46,17 +46,26 @@ def q8bmm_acc(a_u8, b_u8, a_zero_point: int, b_zero_point: int):
     return bmm_acc_plain(a_u8, b_u8, a_zero_point, b_zero_point)
 
 
-def q8bmm(a_u8, b_u8, a_zero_point: int, b_zero_point: int, rparams):
+def q8bmm(a_u8, b_u8, a_zero_point: int, b_zero_point: int, rparams,
+          out=None):
     """Dynamic quantized batched matmul: uint8 [..., M, K] x uint8
     [..., K, N] -> uint8 [..., M, N]; both operands have the same leading
-    axes, which are viewed as one batch axis."""
+    axes.  One or two leading axes go to the kernel as they are, strided
+    views included (kernels/q8bmm.py:bmm_layout), so no operand is copied;
+    other ranks are viewed as one batch axis.  `out` (one or two leading
+    axes) receives the result."""
     lead = a_u8.shape[:-2]
     if b_u8.shape[:-2] != lead:
         raise ValueError(f"leading axes differ: {tuple(a_u8.shape)} vs "
                          f"{tuple(b_u8.shape)}")
+    if len(lead) in (1, 2):
+        return q8bmm_cuda(a_u8, b_u8, a_zero_point, b_zero_point, rparams,
+                          out=out)
+    if out is not None:
+        raise ValueError(f"out takes one or two leading axes, got "
+                         f"{tuple(a_u8.shape)}")
     m, k = a_u8.shape[-2:]
     n = b_u8.shape[-1]
-    y = q8bmm_cuda(a_u8.reshape(-1, m, k).contiguous(),
-                   b_u8.reshape(-1, k, n).contiguous(), a_zero_point,
-                   b_zero_point, rparams)
+    y = q8bmm_cuda(a_u8.reshape(-1, m, k), b_u8.reshape(-1, k, n),
+                   a_zero_point, b_zero_point, rparams)
     return y.reshape(*lead, m, n)

@@ -1,7 +1,9 @@
 """Parity of the port's residual add (q8vadd) and global average pool
 (q8gavgpool) with the JAX package: quant.requantize.add_quantize and
 q8vadd_pallas, nn.pool.q8gavgpool and q8gavgpool_pallas (interpret mode).
-Inputs come from a numpy seed; comparisons are exact."""
+A numpy mirror of csrc/q8vadd.cu's per-byte arithmetic (uint32 sum, the
+compare-free rounding shift) is held against add_quantize on all 65,536
+(a, b) pairs.  Inputs come from a numpy seed; comparisons are exact."""
 
 import numpy as np
 import pytest
@@ -57,6 +59,64 @@ def test_q8vadd_plain_matches_pallas(p):
                                     tile_m=8, tile_n=128, interpret=True))
     np.testing.assert_array_equal(
         q8vadd_plain(torch.from_numpy(a), torch.from_numpy(b), tp).numpy(),
+        want)
+
+
+# Parameter sets for all 65,536 (a, b) pairs: BERT's residual add, the
+# phase-2 set, the smallest shift compute_add_quant_params gives (14, both
+# scales near 256, so |acc| comes within 2^24 of 2^31 and the uint32 sum
+# wraps) and the largest (31).
+ALL_PAIRS_PARAMS = [
+    (128, 128, 128, 1.0, 1.0, 0, 255),
+    (10, 200, 128, 0.125, 1.75, 20, 240),
+    (255, 255, 3, 255.0, 255.5, 0, 255),
+    (0, 0, 250, 255.9, 254.0, 5, 250),
+    (77, 1, 250, 2**-10, 1e-4, 0, 255),
+    (200, 31, 0, 0.0019, 0.0013, 0, 255),
+]
+
+
+def all_pairs():
+    a, b = np.meshgrid(np.arange(256, dtype=np.uint8),
+                       np.arange(256, dtype=np.uint8), indexing="ij")
+    return a, b
+
+
+def q8vadd_mirror(a, b, p):
+    """csrc/q8vadd.cu's add_quant in numpy: the sum in uint32, then
+    d = (acc & mask) + (acc >> 31) - 2^(shift - 1) and
+    y = clamp((acc >> shift) + (d >> 31) + zp + 1, y_min, y_max)."""
+    acc = (np.uint32(p.zero_point_product & 0xFFFFFFFF)
+           + a.astype(np.uint32) * np.uint32(p.a_multiplier)
+           + b.astype(np.uint32) * np.uint32(p.b_multiplier)).view(np.int32)
+    mask = np.uint32((1 << p.shift) - 1)
+    d = ((acc.view(np.uint32) & mask).view(np.int32) + (acc >> 31)
+         - np.int32(1 << (p.shift - 1)))
+    y = (acc >> p.shift) + (d >> 31) + np.int32(p.y_zero_point + 1)
+    y = np.maximum(np.minimum(y, np.int32(p.y_max)), np.int32(p.y_min))
+    return y.astype(np.uint8), acc
+
+
+def test_all_pairs_params_reach_both_shift_ends_and_2_31():
+    params = [tparams.compute_add_quant_params(*p) for p in ALL_PAIRS_PARAMS]
+    assert {p.shift for p in params} >= {14, 31}
+    a, b = all_pairs()
+    worst = max(int(np.abs(q8vadd_mirror(a, b, p)[1].astype(np.int64)).max())
+                for p in params)
+    assert worst > 2**31 - 2**24
+
+
+@pytest.mark.parametrize("p", ALL_PAIRS_PARAMS,
+                         ids=[str(p[:5]) for p in ALL_PAIRS_PARAMS])
+def test_q8vadd_kernel_arithmetic_matches_jax_on_all_pairs(p):
+    jp = jparams.compute_add_quant_params(*p)
+    tp = tparams.compute_add_quant_params(*p)
+    a, b = all_pairs()
+    want = np.asarray(jadd(jnp.asarray(a), jnp.asarray(b), jp))
+    got, _ = q8vadd_mirror(a, b, tp)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        q8vadd_cuda(torch.from_numpy(a), torch.from_numpy(b), tp).numpy(),
         want)
 
 

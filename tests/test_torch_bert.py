@@ -2,7 +2,10 @@
 
 - q8bmm (the kernel's plain version behind nn.gemm.q8bmm) against the JAX
   q8bmm for (za, zb) in {(128, 128), (0, 128), (37, 201)} under fp32, q31
-  and per-channel requant;
+  and per-channel requant, on contiguous operands and on BERT's q, k and v
+  views of one qkv array with the context written through `out=`;
+- the wrapper's layout rule (kernels/q8bmm.py:bmm_layout): K- and N-major
+  B, and the layouts it refuses;
 - BERT at the tiny config of tests/test_models_zoo.py (q31 and fp32), one
   layer at full width (hidden 768, 12 heads, FFN 3072, sequence 128, batch
   1, fp32), the port's builder against the JAX builder (same seed, same
@@ -28,7 +31,7 @@ from qnnpack_tpu.quant.params import \
     compute_per_channel_fp32_params as jper_channel
 from qnnpack_tpu_torch import kernels as tkernels
 from qnnpack_tpu_torch.entry import entry, input_shape
-from qnnpack_tpu_torch.kernels.q8bmm import q8bmm_cuda
+from qnnpack_tpu_torch.kernels.q8bmm import bmm_layout, q8bmm_cuda
 from qnnpack_tpu_torch.models import bert as tbert
 from qnnpack_tpu_torch.nn import gemm as tgemm
 from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params as tmake
@@ -70,6 +73,83 @@ def test_q8bmm_matches_jax(lead, m, k, n, za, zb, scheme):
     assert got.dtype == torch.uint8 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
     assert tkernels.launch_counts()["q8bmm"] == 0
+
+
+@pytest.mark.parametrize("scheme", ["fp32", "q31", "per_channel"])
+@pytest.mark.parametrize("za,zb", [(128, 128), (0, 128), (37, 201)])
+@pytest.mark.parametrize("b,s,nh,dh", [(2, 16, 2, 16), (1, 9, 3, 5)])
+def test_q8bmm_on_head_views_matches_jax(b, s, nh, dh, za, zb, scheme):
+    """Scores from q and k, context from probabilities and v, all views of
+    one [B * S, 3 H] qkv array (no copy), the context written into a
+    [B, S, H] buffer through out=; the JAX q8bmm takes the transposed
+    arrays, as the JAX forward builds them."""
+    h = nh * dh
+    qkv = u8(b * s, 3 * h)
+    q, k, v = tbert.head_views(torch.from_numpy(qkv), b, s, nh, dh)
+    assert q.data_ptr() == k.data_ptr() - h == v.data_ptr() - 2 * h
+    j5 = qkv.reshape(b, s, 3, nh, dh)
+    jq = np.ascontiguousarray(j5[:, :, 0].transpose(0, 2, 1, 3))
+    jk = np.ascontiguousarray(j5[:, :, 1].transpose(0, 2, 3, 1))
+    jv = np.ascontiguousarray(j5[:, :, 2].transpose(0, 2, 1, 3))
+    jrp, trp = requant_pair(scheme, s)
+    want = np.asarray(jgemm.q8bmm(jnp.asarray(jq), jnp.asarray(jk), za, zb,
+                                  jrp))
+    got = tgemm.q8bmm(q, k, za, zb, trp)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    probs = u8(b, nh, s, s)
+    jrp, trp = requant_pair(scheme, dh)
+    want = np.asarray(jgemm.q8bmm(jnp.asarray(probs), jnp.asarray(jv), za,
+                                  zb, jrp))
+    ctx = torch.zeros((b, s, h), dtype=torch.uint8)
+    view = ctx.view(b, s, nh, dh).permute(0, 2, 1, 3)
+    got = tgemm.q8bmm(torch.from_numpy(probs), v, za, zb, trp, out=view)
+    assert got.data_ptr() == ctx.data_ptr()
+    np.testing.assert_array_equal(view.numpy(), want)
+    np.testing.assert_array_equal(
+        ctx.numpy(), want.transpose(0, 2, 1, 3).reshape(b, s, h))
+
+
+def test_bmm_layout_reads_k_and_n_major_b():
+    qkv = torch.zeros((2 * 16, 3 * 32), dtype=torch.uint8)
+    q, k, v = tbert.head_views(qkv, 2, 16, 2, 16)
+    g, g1, sa, sb, b_kmajor, so = bmm_layout(q, k)
+    assert (g, g1, b_kmajor) == (4, 2, True)
+    assert sa == (16 * 96, 16, 96) and sb == (16 * 96, 16, 96)
+    assert so == (2 * 16 * 16, 16 * 16, 16)
+    probs = torch.zeros((2, 2, 16, 16), dtype=torch.uint8)
+    ctx = torch.zeros((2, 16, 32), dtype=torch.uint8)
+    g, g1, sa, sb, b_kmajor, so = bmm_layout(
+        probs, v, ctx.view(2, 16, 2, 16).permute(0, 2, 1, 3))
+    assert (g, g1, b_kmajor) == (4, 2, False)
+    assert sb == (16 * 96, 16, 96) and so == (16 * 32, 16, 32)
+    # A contiguous B is N-major; a 3-D batch has no outer stride.
+    g, g1, sa, sb, b_kmajor, so = bmm_layout(
+        torch.zeros((5, 3, 4), dtype=torch.uint8),
+        torch.zeros((5, 4, 6), dtype=torch.uint8))
+    assert (g, g1, sa, sb, b_kmajor, so) == (5, 5, (0, 12, 4), (0, 24, 6),
+                                             False, (0, 18, 6))
+
+
+def test_bmm_layout_refuses_other_layouts():
+    a = torch.zeros((2, 3, 4), dtype=torch.uint8)
+    b = torch.zeros((2, 8, 12), dtype=torch.uint8)[:, ::2, ::2]
+    with pytest.raises(ValueError, match="K or N at stride 1"):
+        bmm_layout(a, b)
+    with pytest.raises(ValueError, match="K at stride 1"):
+        bmm_layout(torch.zeros((2, 4, 3), dtype=torch.uint8).transpose(1, 2),
+                   torch.zeros((2, 4, 6), dtype=torch.uint8))
+    b = torch.zeros((2, 4, 6), dtype=torch.uint8)
+    for out in (torch.zeros((2, 3, 5), dtype=torch.uint8),
+                torch.zeros((2, 3, 6), dtype=torch.int32),
+                torch.zeros((2, 6, 3), dtype=torch.uint8).transpose(1, 2),
+                torch.zeros((2, 3, 12), dtype=torch.uint8)[:, :, ::2]):
+        with pytest.raises(ValueError, match="out"):
+            bmm_layout(a, b, out)
+    with pytest.raises(ValueError, match="do not chain"):
+        bmm_layout(a, torch.zeros((3, 4, 6), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        bmm_layout(a[0], b[0])
 
 
 def test_q8bmm_accumulator_wraps_like_int32():
