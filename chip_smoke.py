@@ -28,8 +28,14 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
      the context written through out=, the tiny config's dh = 16 at stride
      96, bases 8 bytes off 16, K-major B with za != 0, K = 70,000 with sums
      past 2^31); q8vadd on all 65,536 (a, b) pairs under three parameter
-     sets, 1, 15, 16 and 17 bytes and a base 1 byte off 16: torch.equal,
-     zero tolerance (the integer math is exact);
+     sets, 1, 15, 16 and 17 bytes and a base 1 byte off 16; u8rmax and
+     u8lut32norm on every instance of kernels/vpu_ops.py:row_instance (16,
+     8 or 1 bytes a lane, 1 to 32 lanes a row; each must run, as the
+     wrappers record it in u8rmax_cuda.instance / u8lut32norm_cuda.instance)
+     at N = 1 to 4096, R = 1,537, bases 1, 2, 4 and 8 bytes off, BERT's
+     196,608 x 128 b128 scores, tables past 2^31 and rows whose sum wraps
+     to 0 (all 255): torch.equal, zero tolerance (the integer math is
+     exact);
   3. for each model, batch 1: the forward on the card must equal the plain
      CPU forward byte for byte (logits [1, 1000] for the image models,
      hidden states [1, 128, 768] for BERT, not constant);
@@ -238,6 +244,7 @@ def check_kernels(torch, err):
     """Each kernel vs its plain version on CPU copies of the same inputs."""
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.kernels._build import out_dims
+    from qnnpack_tpu_torch.kernels.vpu_ops import ROW_VECS
     from qnnpack_tpu_torch.nn.conv import pack_conv_weights
     from qnnpack_tpu_torch.nn.elementwise import (build_softargmax_lut,
                                                   lut32_tensor)
@@ -733,7 +740,12 @@ def check_kernels(torch, err):
 
     # u8rmax and u8lut32norm: (label, R, N, offset of the rows, scale);
     # BERT's score rows, odd N (rows off the 4-byte boundary), rows of 0
-    # and of 255, and base pointers off by one and two bytes.
+    # and of 255, and base pointers off by one and two bytes; then every
+    # instance and row mapping of csrc/u8rows.cuh (kernels/vpu_ops.py:
+    # row_instance): 16, 8 (N % 16 == 8 or a base 8 bytes off 16) and 1
+    # byte a lane, each at 1 to 32 lanes a row, rows longer than a warp's
+    # reach (two passes in u8lut32norm), R off the rows a block, bases 1,
+    # 2, 4 and 8 bytes off, and BERT's whole b128 score tensor.
     row_cases = [
         ("scores b1 1536x128", 1536, 128, 0, 0.05),
         ("N=1 37x1", 37, 1, 0, 0.1),
@@ -741,25 +753,76 @@ def check_kernels(torch, err):
         ("N=301 29x301, rows of 0 and 255", 29, 301, 0, 1.0),
         ("base + 1 byte 64x128", 64, 128, 1, 0.05),
         ("base + 2 bytes N=4096 5x4096", 5, 4096, 2, 0.01),
+        ("N=2 1537x2", 1537, 2, 0, 0.5),
+        ("N=6 1537x6", 1537, 6, 0, 0.5),
+        ("N=10 1537x10", 1537, 10, 0, 0.5),
+        ("N=8 1537x8", 1537, 8, 0, 0.5),
+        ("N=16 1537x16", 1537, 16, 0, 0.5),
+        ("N=24 1537x24", 1537, 24, 0, 0.5),
+        ("N=32 1537x32", 1537, 32, 0, 0.5),
+        ("N=40 1537x40", 1537, 40, 0, 0.1),
+        ("N=64 1537x64", 1537, 64, 0, 0.1),
+        ("N=128 1537x128", 1537, 128, 0, 0.05),
+        ("N=256 1537x256", 1537, 256, 0, 0.05),
+        ("N=512 1537x512", 1537, 512, 0, 0.02),
+        ("N=520 1537x520", 1537, 520, 0, 0.02),
+        ("N=1000 1537x1000 (SoftArgMax)", 1537, 1000, 0, 0.01),
+        ("N=4096 77x4096", 77, 4096, 0, 0.01),
+        ("base + 4 bytes 1537x128", 1537, 128, 4, 0.05),
+        ("base + 8 bytes N=16 1537x16", 1537, 16, 8, 0.5),
+        ("base + 8 bytes 1537x128", 1537, 128, 8, 0.05),
+        ("base + 8 bytes 333x1000", 333, 1000, 8, 0.01),
+        ("scores b128 196608x128", 196608, 128, 0, 0.05),
     ]
+    row_seen = {"u8rmax": set(), "u8lut32norm": set()}
+
+    def rows_tag(name):
+        vec, lanes = K.KERNELS[name].instance
+        row_seen[name].add((vec, lanes))
+        return f"[{vec} B x {lanes} lanes]"
+
     for label, r, n, offset, scale in row_cases:
         x = torch.from_numpy(u8(r, n))
         x[0] = 0
         x[-1] = 255
         rmax = K.u8rmax_plain(x)
-        check("u8rmax", label, K.u8rmax_cuda(placed(x, offset)), rmax)
+        got = K.u8rmax_cuda(placed(x, offset))
+        check("u8rmax", f"{label} {rows_tag('u8rmax')}", got, rmax)
         lut = lut32_tensor(build_softargmax_lut(scale, n))
-        check("u8lut32norm", label,
-              K.u8lut32norm_cuda(placed(x, offset), rmax.to(cuda),
-                                 lut.to(cuda)),
+        got = K.u8lut32norm_cuda(placed(x, offset), rmax.to(cuda),
+                                 lut.to(cuda))
+        check("u8lut32norm", f"{label} {rows_tag('u8lut32norm')}", got,
               K.u8lut32norm_plain(x, rmax, lut))
-    x = torch.from_numpy(u8(19, 130))
+    # Tables past 2^31: the sum and 256 e wrap in uint32 (bytes, then 16).
     wrap = lut32_tensor(rng.integers(2**31, 2**32, 256, dtype=np.uint64)
                         .astype(np.uint32))
+    for r, n in ((19, 130), (1537, 128)):
+        x = torch.from_numpy(u8(r, n))
+        rmax = K.u8rmax_plain(x)
+        got = K.u8lut32norm_cuda(x.to(cuda), rmax.to(cuda), wrap.to(cuda))
+        check("u8lut32norm", f"table past 2^31 (uint32 wrap) {r}x{n} "
+              f"{rows_tag('u8lut32norm')}", got,
+              K.u8lut32norm_plain(x, rmax, wrap))
+    # N t[255] = 2^32 (N = 4096, scale 0.01): rows all at their max sum to
+    # 0 mod 2^32, and every output byte of them is 255.
+    x = torch.full((9, 4096), 255, dtype=torch.uint8)
+    x[3, :100] = 17
+    x[5] = torch.from_numpy(u8(4096))
     rmax = K.u8rmax_plain(x)
-    check("u8lut32norm", "table past 2^31 (uint32 wrap) 19x130",
-          K.u8lut32norm_cuda(x.to(cuda), rmax.to(cuda), wrap.to(cuda)),
-          K.u8lut32norm_plain(x, rmax, wrap))
+    lut = lut32_tensor(build_softargmax_lut(0.01, 4096))
+    got = K.u8lut32norm_cuda(x.to(cuda), rmax.to(cuda), lut.to(cuda))
+    check("u8lut32norm", f"sum wraps to 0, 9x4096 "
+          f"{rows_tag('u8lut32norm')}", got,
+          K.u8lut32norm_plain(x, rmax, lut))
+    if not bool((got[[0, 1, 2, 4, 6, 7, 8]] == 255).all()):
+        raise AssertionError("u8lut32norm: a row whose sum wraps to 0 "
+                             "is not all 255")
+    want_rows = {(vec, lanes) for vec in ROW_VECS
+                 for lanes in (1, 2, 4, 8, 16, 32)}
+    for name, seen in row_seen.items():
+        if not want_rows <= seen:
+            raise AssertionError(f"{name} instances not run: "
+                                 f"{sorted(want_rows - seen)}")
 
     # u8clamp: (label, shape, offset, clamp); sizes about a 16-byte
     # vector, a tail, a base off the 16-byte boundary, and the timed

@@ -52,8 +52,8 @@ SIGNATURES = {
                  + [_I64] * 6 + [_I] + [_I64] * 3 + [_I] * 2 + [_I] * 6
                  + [_F, _P],
     "qnn_u8clamp": [_I, _P, _P, _I64, _I, _I, _P],
-    "qnn_u8rmax": [_I, _P, _P, _I64, _I, _P],
-    "qnn_u8lut32norm": [_I, _P, _P, _P, _P, _I64, _I, _P],
+    "qnn_u8rmax": [_I, _P, _P, _I64, _I, _I, _I, _P],
+    "qnn_u8lut32norm": [_I, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

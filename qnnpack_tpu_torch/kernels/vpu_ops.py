@@ -5,7 +5,8 @@ Ports of qnnpack_tpu/kernels/vpu_ops.py:q8vadd_pallas, u8clamp_pallas and
 u8rmax_pallas, and of the normalize pass of qnnpack_tpu/nn/elementwise.py:
 u8softargmax (u8lut32norm, which has no Pallas form).  The CUDA sources,
 with their design and what bounds them, are csrc/q8vadd.cu, csrc/u8clamp.cu,
-csrc/u8rmax.cu and csrc/u8lut32norm.cu.
+csrc/u8rmax.cu and csrc/u8lut32norm.cu; the two row kernels share the row
+mapping of csrc/u8rows.cuh, whose instance `row_instance` picks.
 
 Each `*_cuda` wrapper takes the plain version for CPU tensors only.  For
 CUDA tensors it launches the kernel or raises; there is no fallback.
@@ -77,6 +78,22 @@ def _check_rows(x_u8):
                          f"{tuple(x_u8.shape)}")
 
 
+# Bytes a lane loads at a time, widest first (csrc/u8rows.cuh).
+ROW_VECS = (16, 8, 1)
+
+
+def row_instance(n: int, *bases: int):
+    """The instance of a row kernel's launch (u8rmax, u8lut32norm) over rows
+    of `n` bytes at the base addresses `bases`: (vec, lanes).  vec, the
+    bytes a lane loads at a time, is 16 where N % 16 == 0 and every base is
+    on a 16-byte boundary, else 8 on the same terms, else 1 (any N, any
+    base); lanes, the lanes a row, is the least power of two that covers
+    the row's N / vec vectors, at most 32 (longer rows loop in the warp)."""
+    vec = next(v for v in ROW_VECS
+               if n % v == 0 and all(b % v == 0 for b in bases))
+    return vec, min(32, 1 << (n // vec - 1).bit_length())
+
+
 def u8rmax_plain(x_u8):
     """Plain version of the kernel: the max of each row."""
     return x_u8.amax(dim=-1)
@@ -90,13 +107,16 @@ def u8rmax_cuda(x_u8):
     _build.check_cuda("x", x_u8, torch.uint8, 2)
     rows, n = x_u8.shape
     out = torch.empty((rows,), dtype=torch.uint8, device=x_u8.device)
+    vec, lanes = row_instance(n, x_u8.data_ptr())
     _build.launch("qnn_u8rmax", x_u8.device.index or 0, x_u8.data_ptr(),
-                  out.data_ptr(), rows, n, _build.stream_of(x_u8))
+                  out.data_ptr(), rows, n, vec, lanes, _build.stream_of(x_u8))
     u8rmax_cuda.launches += 1
+    u8rmax_cuda.instance = (vec, lanes)
     return out
 
 
 u8rmax_cuda.launches = 0
+u8rmax_cuda.instance = None  # (vec, lanes) of the last launch
 
 
 def u8lut32norm_plain(x_u8, rmax_u8, lut):
@@ -136,11 +156,14 @@ def u8lut32norm_cuda(x_u8, rmax_u8, lut):
         raise ValueError(f"x on {x_u8.device}, rmax on {rmax_u8.device}, "
                          f"lut on {lut.device}")
     out = torch.empty_like(x_u8)
+    vec, lanes = row_instance(n, x_u8.data_ptr(), out.data_ptr())
     _build.launch("qnn_u8lut32norm", x_u8.device.index or 0, x_u8.data_ptr(),
                   rmax_u8.data_ptr(), lut.data_ptr(), out.data_ptr(), rows, n,
-                  _build.stream_of(x_u8))
+                  vec, lanes, _build.stream_of(x_u8))
     u8lut32norm_cuda.launches += 1
+    u8lut32norm_cuda.instance = (vec, lanes)
     return out
 
 
 u8lut32norm_cuda.launches = 0
+u8lut32norm_cuda.instance = None  # (vec, lanes) of the last launch

@@ -10,9 +10,12 @@ u8lut32norm (lookup, sum and normalize, in wrapping uint32).
 
 Not carried over: `_lut256`, `_lut_factored`, `_lut_t16` and
 `build_softargmax_lut_factored`, which are TPU lowerings of the same
-256-entry lookup (one-hot dots on the MXU), and the Barrett division of
-u8softargmax, a TPU trick for a vector divide: the kernel divides in uint32.
-The add and the clamp are the q8vadd and u8clamp kernels
+256-entry lookup (one-hot dots on the MXU); u8lut32norm reads the table
+from shared memory.  The divide is the JAX package's idea on the card's
+terms: neither machine has an integer divider, so u8lut32norm divides once
+a row, for a reciprocal m = floor(2^32 / s), and each element takes a
+multiply-high and one correction (csrc/u8lut32norm.cu says why that is
+exact).  The add and the clamp are the q8vadd and u8clamp kernels
 (kernels/vpu_ops.py).
 """
 

@@ -8,7 +8,13 @@
 - u8softargmax against the JAX function (with the factored table where
   build_softargmax_lut_factored holds, its bilinear form where it declines)
   and against reference_ops.softargmax;
-- the LUT builders bit for bit, and x8lut, against the JAX ones.
+- the LUT builders bit for bit, and x8lut, against the JAX ones;
+- a numpy mirror of csrc/u8lut32norm.cu's divide (one uint32 divide a
+  row for the magic, a multiply-high and one correction an element, the
+  s == 0 -> 255 rule and the clamp) against exact integer division and
+  the JAX package's u32_barrett_magic / u32_div_floor, and whole rows of
+  it against u8lut32norm_plain;
+- kernels.vpu_ops.row_instance, the row kernels' instance picker.
 Comparisons are exact."""
 
 import numpy as np
@@ -20,12 +26,13 @@ import jax.numpy as jnp
 import reference_ops as ref
 from qnnpack_tpu.kernels.vpu_ops import u8clamp_pallas, u8rmax_pallas
 from qnnpack_tpu.nn import elementwise as jelem
+from qnnpack_tpu.quant.int_arith import u32_barrett_magic, u32_div_floor
 from qnnpack_tpu.quant.params import ClampParams as JClampParams
 from qnnpack_tpu_torch import kernels as tkernels
 from qnnpack_tpu_torch.kernels.vpu_ops import (u8clamp_cuda, u8clamp_plain,
                                                u8lut32norm_cuda,
                                                u8lut32norm_plain, u8rmax_cuda,
-                                               u8rmax_plain)
+                                               u8rmax_plain, row_instance)
 from qnnpack_tpu_torch.nn import elementwise as telem
 from qnnpack_tpu_torch.quant.params import compute_u8_clamping_params
 
@@ -180,3 +187,137 @@ def test_x8lut_matches_jax(shape):
         got = telem.x8lut(torch.from_numpy(x), table)
         assert got.dtype == torch.uint8
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------- the kernel's divide, mirrored
+U32 = 0xFFFFFFFF
+
+
+def lut32norm_magic(s):
+    """csrc/u8lut32norm.cu:row_div's magic for uint32 sums `s` (uint64
+    array): one uint32 divide, m = floor((2^32 - 1) / s) + [s divides
+    2^32] = floor(2^32 / s) for s >= 2, and 2^32 - 1 for s <= 1."""
+    q = np.uint64(U32) // np.maximum(s, np.uint64(1))
+    exact = (np.uint64(U32) - q * s) == s - np.uint64(1)
+    return np.where(s > 1, q + exact.astype(np.uint64), np.uint64(U32))
+
+
+def lut32norm_divide(num, s, m):
+    """csrc/u8lut32norm.cu:norm's quotient of uint32 `num` by the row's
+    `s` (uint64 arrays holding uint32 values): q0 = mulhi(num, m), then one
+    correction, q0 + (num - q0 s >= s), every product and difference in
+    uint32."""
+    q0 = (num * m) >> np.uint64(32)
+    d = (num - q0 * s) & np.uint64(U32)
+    return q0 + (d >= s).astype(np.uint64)
+
+
+def lut32norm_mirror(x, rmax, lut):
+    """Whole rows through the kernel's steps: e = t[x + 255 - rmax], the
+    wrapping uint32 sum, the magic, num = 256 e + s / 2 (wrapping), the
+    quotient, the clamp to 255, and 255 where s == 0 (the fill)."""
+    t = lut.astype(np.uint64)
+    e = t[x.astype(np.int64) + (255 - rmax.astype(np.int64))[:, None]]
+    s = e.sum(axis=-1, keepdims=True) & np.uint64(U32)
+    num = (e * np.uint64(256) + (s >> np.uint64(1))) & np.uint64(U32)
+    q = lut32norm_divide(num, s, lut32norm_magic(s))
+    y = np.minimum(q, np.uint64(255))
+    return np.where(s == 0, np.uint64(255), y).astype(np.uint8)
+
+
+DIVISORS = [1, 2, 3, 255, 256, 2**16 - 1, 2**16 + 1, 2**31 - 1, 2**31,
+            2**31 + 1, 2**32 - 1]
+
+
+def numerators(s, rng):
+    """For each divisor: 0, s - 1, s, 2^32 - 1, 256 e + s / 2 for a random
+    uint32 e (wrapping past 2^32), and k s - 1, k s at a random k with
+    k s < 2^32 (the edges of the correction)."""
+    e = rng.integers(0, 2**32, s.shape, dtype=np.uint64)
+    k = (rng.random(s.shape) * (np.uint64(U32) // s).astype(np.float64)
+         ).astype(np.uint64) + np.uint64(1)
+    k = np.minimum(k, np.uint64(U32) // s)
+    cols = [np.zeros_like(s), s - np.uint64(1), s,
+            np.full_like(s, U32),
+            (e * np.uint64(256) + (s >> np.uint64(1))) & np.uint64(U32),
+            k * s - np.uint64(1), k * s]
+    return np.stack(cols, axis=-1)
+
+
+@pytest.mark.parametrize("which", ["listed", "random"])
+def test_lut32norm_divide_is_exact(which):
+    rng = np.random.default_rng(0xD1F)
+    if which == "listed":
+        s = np.array(DIVISORS, np.uint64)
+    else:
+        s = rng.integers(1, 2**32, 100_000, dtype=np.uint64)
+    n = numerators(s, rng)
+    s2 = np.broadcast_to(s[:, None], n.shape)
+    m = lut32norm_magic(s2)
+    assert int(m.max()) <= U32
+    q = lut32norm_divide(n, s2, m)
+    np.testing.assert_array_equal(q, n // s2)
+    # The JAX package's magic agrees where it fits in uint32 (s >= 2), and
+    # its divide (two corrections, s == 1 apart) gives the same quotient.
+    n32, s32 = n.astype(np.uint32).ravel(), s2.astype(np.uint32).ravel()
+    jm = np.asarray(u32_barrett_magic(jnp.asarray(s32)))
+    big = s32 >= 2
+    np.testing.assert_array_equal(m.ravel()[big].astype(np.uint32), jm[big])
+    jq = np.asarray(u32_div_floor(jnp.asarray(n32), jnp.asarray(s32),
+                                  jnp.asarray(jm)))
+    np.testing.assert_array_equal(q.ravel().astype(np.uint32), jq)
+
+
+def test_lut32norm_divide_listed_divisors_cover_the_edges():
+    s = np.array(DIVISORS, np.uint64)
+    m = lut32norm_magic(s)
+    # s = 1 takes 2^32 - 1; powers of two take the + [s divides 2^32] term.
+    assert int(m[0]) == U32 and int(m[DIVISORS.index(256)]) == 2**24
+    assert int(m[DIVISORS.index(2**31)]) == 2
+    n = numerators(s, np.random.default_rng(3))
+    assert int(n[:, 4].max()) < 2**32 and (n[:, 4] < n[:, 3]).all()
+
+
+@pytest.mark.parametrize("case", ["table past 2^31", "bert rows",
+                                  "sum wraps to 0"])
+def test_lut32norm_mirror_matches_plain(case):
+    if case == "table past 2^31":
+        lut = RNG.integers(2**31, 2**32, 256, dtype=np.uint64).astype(
+            np.uint32)
+        x = u8(16, 130)
+    elif case == "bert rows":
+        lut = telem.build_softargmax_lut(0.05, 128)
+        x = u8(16, 128)
+    else:
+        lut = telem.build_softargmax_lut(0.01, 4096)
+        x = np.full((3, 4096), 255, np.uint8)
+        x[1, :5] = 7
+        x[2] = u8(4096)
+    rows = torch.from_numpy(x)
+    rmax = u8rmax_plain(rows)
+    want = u8lut32norm_plain(rows, rmax, telem.lut32_tensor(lut)).numpy()
+    got = lut32norm_mirror(x, rmax.numpy(), lut)
+    np.testing.assert_array_equal(got, want)
+    if case == "sum wraps to 0":
+        assert (got[0] == 255).all()
+    else:
+        np.testing.assert_array_equal(got, ref.softargmax(x, lut))
+
+
+# ------------------------------------------------ the row kernels' instance
+@pytest.mark.parametrize("n,bases,want", [
+    (128, (0,), (16, 8)),                # BERT's score rows, aligned
+    (128, (0, 512), (16, 8)),            # u8lut32norm: x and y
+    (16, (0,), (16, 1)), (32, (0,), (16, 2)), (64, (0,), (16, 4)),
+    (256, (0,), (16, 16)), (512, (0,), (16, 32)), (4096, (0,), (16, 32)),
+    (1000, (0,), (8, 32)),               # the lifecycle's SoftArgMax
+    (520, (0,), (8, 32)), (24, (0,), (8, 4)), (128, (8,), (8, 16)),
+    (8, (0,), (8, 1)), (16, (8,), (8, 2)), (40, (0,), (8, 8)),
+    (56, (0,), (8, 8)), (64, (8,), (8, 8)),
+    (2, (0,), (1, 2)), (6, (0,), (1, 8)), (10, (0,), (1, 16)),
+    (1, (0,), (1, 1)), (3, (0,), (1, 4)), (301, (0,), (1, 32)),
+    (128, (1,), (1, 32)), (128, (2,), (1, 32)), (128, (4,), (1, 32)),
+    (128, (0, 1), (1, 32)), (1000, (16, 2), (1, 32)),
+])
+def test_row_instance(n, bases, want):
+    assert row_instance(n, *bases) == want
