@@ -34,8 +34,17 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
      wrappers record it in u8rmax_cuda.instance / u8lut32norm_cuda.instance)
      at N = 1 to 4096, R = 1,537, bases 1, 2, 4 and 8 bytes off, BERT's
      196,608 x 128 b128 scores, tables past 2^31 and rows whose sum wraps
-     to 0 (all 255): torch.equal, zero tolerance (the integer math is
-     exact);
+     to 0 (all 255); u8maxpool and q8avgpool on every instance of
+     kernels/pool.py:pool_instance (16, 8, 4 or 1 bytes a thread x the
+     3x3 stride-2 window or any window, and for q8avgpool any window with
+     32-bit sums; each must run, as the wrappers record it in
+     u8maxpool_cuda.instance / q8avgpool_cuda.instance) at the b128
+     main-path shapes (ResNet-18's and ShuffleNet's pool1, ShuffleNet's
+     three shortcut avgpools), bases 1, 4 and 8 bytes off 16, C = 3 to
+     512, 2x2 s2, 3x3 s1 pad 1, dilation 2, clamp 20/250, izp 0, 7 and
+     250, 16x16 and 17x17 avg windows, all-255 and all-0 windows and a
+     bias whose sums wrap int32: torch.equal, zero tolerance (the integer
+     math is exact);
   3. for each model, batch 1: the forward on the card must equal the plain
      CPU forward byte for byte (logits [1, 1000] for the image models,
      hidden states [1, 128, 768] for BERT, not constant);
@@ -619,51 +628,7 @@ def check_kernels(torch, err):
         raise AssertionError(f"q8dwconv instances not run: "
                              f"{want_dw - dw_seen}")
 
-    # u8maxpool: (label, shape, pool, strides, padding, dilation, clamp)
-    pool_cases = [
-        ("resnet pool1 112x112x64 3x3 s2", (1, 112, 112, 64), (3, 3),
-         (2, 2), s2, (1, 1), (0, 255)),
-        ("squeezenet 111x111x96 3x3 s2", (1, 111, 111, 96), (3, 3), (2, 2),
-         p0, (1, 1), (0, 255)),
-        ("vgg 2x2 s2 14x14x512", (2, 14, 14, 512), (2, 2), (2, 2), p0,
-         (1, 1), (0, 255)),
-        ("clamp 20/250 odd 13x11x17", (2, 13, 11, 17), (3, 3), (2, 2), p1,
-         (1, 1), (20, 250)),
-        ("clamp 20/250 C=3 dil 2 12x9", (3, 12, 9, 3), (3, 2), (1, 2),
-         ((2, 1), (0, 2)), (2, 1), (20, 250)),
-    ]
-    for label, shape, pool, strides, pad, dil, (lo, hi) in pool_cases:
-        x = torch.from_numpy(u8(*shape))
-        check("u8maxpool", label,
-              K.u8maxpool_cuda(x.to(cuda), pool, strides, pad, dil, lo, hi),
-              K.u8maxpool_plain(x, pool, strides, pad, dil, lo, hi))
-
-    # q8avgpool: (label, shape, pool, strides, padding, izp, scale,
-    # output zp, clamp); bias = -izp * pool size, as the graph sets it.
-    avgpool_cases = [
-        ("shufflenet st0u0 56x56x24 3x3 s2", (1, 56, 56, 24), (3, 3),
-         (2, 2), s2, 128, 1 / 9, 128, (0, 255)),
-        ("shufflenet st1u0 28x28x240 3x3 s2", (1, 28, 28, 240), (3, 3),
-         (2, 2), s2, 128, 1 / 9, 128, (0, 255)),
-        ("shufflenet st2u0 14x14x480 3x3 s2", (1, 14, 14, 480), (3, 3),
-         (2, 2), s2, 128, 1 / 9, 128, (0, 255)),
-        ("izp 7, 2x2 s2 unpadded 10x8x12", (2, 10, 8, 12), (2, 2), (2, 2),
-         p0, 7, 0.25, 100, (0, 255)),
-        ("izp 250, 3x3 s1 pad 1 9x7x16", (2, 9, 7, 16), (3, 3), (1, 1), p1,
-         250, 1 / 9, 3, (0, 255)),
-        ("odd 11x13, C=5, izp 121 s2 pad(0,1)", (3, 11, 13, 5), (3, 3),
-         (2, 2), s2, 121, 0.37, 117, (0, 255)),
-        ("clamp 20/250 13x11x17", (2, 13, 11, 17), (3, 3), (2, 2), s2, 128,
-         1 / 9, 128, (20, 250)),
-    ]
-    for (label, shape, pool, strides, pad, izp, scale, zp,
-         (lo, hi)) in avgpool_cases:
-        params = compute_avgpool_quant_params(
-            -izp * pool[0] * pool[1], scale, zp, lo, hi, input_zero_point=izp)
-        x = torch.from_numpy(u8(*shape))
-        check("q8avgpool", label,
-              K.q8avgpool_cuda(x.to(cuda), params, pool, strides, pad),
-              K.q8avgpool_plain(x, params, pool, strides, pad))
+    check_pools(torch, err, u8, placed)
 
     # q8vadd: every (a, b) pair as a 256 x 256 tensor under BERT's
     # parameters, the zp 10/200 set and the largest shift (31); sizes about
@@ -843,6 +808,177 @@ def check_kernels(torch, err):
         check("u8clamp", label, K.u8clamp_cuda(placed(x, offset), params),
               K.u8clamp_plain(x, params))
     torch.cuda.synchronize()
+
+
+def pool_tag(fn):
+    """The u8maxpool / q8avgpool instance of the last launch as [16 B,
+    3x3s2]."""
+    vec, window = fn.instance
+    return f"[{vec} B, {window}]"
+
+
+def check_pools(torch, err, u8, placed):
+    """u8maxpool and q8avgpool against their plain versions: the b128
+    main-path shapes, bases 1, 4 and 8 bytes off 16, C = 3 to 512, other
+    windows, strides, dilation, clamps and input zero points, all-255 and
+    all-0 windows, sums that wrap int32; every instance of kernels/pool.py:
+    pool_instance must run, as the wrappers record it in
+    u8maxpool_cuda.instance / q8avgpool_cuda.instance."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.kernels.pool import POOL_VECS
+    from qnnpack_tpu_torch.quant.params import compute_avgpool_quant_params
+
+    s2, p1, p0 = ((0, 1), (0, 1)), ((1, 1), (1, 1)), ((0, 0), (0, 0))
+    seen = {"u8maxpool": set(), "q8avgpool": set()}
+
+    def check(name, label, x, offset, run, plain):
+        got = run(placed(x, offset))
+        fn = K.KERNELS[name]
+        seen[name].add(fn.instance)
+        compare(torch, err, name, f"{label} {pool_tag(fn)}", got, plain(x))
+
+    # u8maxpool: (label, shape, pool, strides, padding, dilation, clamp,
+    # base offset, fill or None for random bytes)
+    max_cases = [
+        ("resnet pool1 112x112x64 3x3 s2", (1, 112, 112, 64), (3, 3),
+         (2, 2), s2, (1, 1), (0, 255), 0, None),
+        ("resnet b128 pool1 128x112x112x64", (128, 112, 112, 64), (3, 3),
+         (2, 2), s2, (1, 1), (0, 255), 0, None),
+        ("shufflenet b128 pool1 128x112x112x24", (128, 112, 112, 24),
+         (3, 3), (2, 2), s2, (1, 1), (0, 255), 0, None),
+        ("squeezenet 111x111x96 3x3 s2", (1, 111, 111, 96), (3, 3), (2, 2),
+         p0, (1, 1), (0, 255), 0, None),
+        ("vgg 2x2 s2 14x14x512", (2, 14, 14, 512), (2, 2), (2, 2), p0,
+         (1, 1), (0, 255), 0, None),
+        ("clamp 20/250 odd 13x11x17", (2, 13, 11, 17), (3, 3), (2, 2), p1,
+         (1, 1), (20, 250), 0, None),
+        ("clamp 20/250 C=3 dil 2 12x9", (3, 12, 9, 3), (3, 2), (1, 2),
+         ((2, 1), (0, 2)), (2, 1), (20, 250), 0, None),
+        ("base + 8 bytes 29x31x64 3x3 s2", (2, 29, 31, 64), (3, 3), (2, 2),
+         s2, (1, 1), (0, 255), 8, None),
+        ("base + 4 bytes 29x31x64 3x3 s2", (2, 29, 31, 64), (3, 3), (2, 2),
+         s2, (1, 1), (0, 255), 4, None),
+        ("base + 1 byte 29x31x64 3x3 s2", (2, 29, 31, 64), (3, 3), (2, 2),
+         s2, (1, 1), (0, 255), 1, None),
+        ("C=5 3x3 s2 pad(0,1) 15x17", (2, 15, 17, 5), (3, 3), (2, 2), s2,
+         (1, 1), (0, 255), 0, None),
+        ("C=24 3x3 s2 pad(0,1) 15x17", (2, 15, 17, 24), (3, 3), (2, 2), s2,
+         (1, 1), (0, 255), 0, None),
+        ("C=240 3x3 s2 pad(0,1) 15x17", (2, 15, 17, 240), (3, 3), (2, 2),
+         s2, (1, 1), (0, 255), 0, None),
+        ("C=480 3x3 s2 pad 1 clamp 20/250", (2, 15, 17, 480), (3, 3),
+         (2, 2), p1, (1, 1), (20, 250), 0, None),
+        ("C=512 3x3 s2 pad(0,1) 15x17", (2, 15, 17, 512), (3, 3), (2, 2),
+         s2, (1, 1), (0, 255), 0, None),
+        ("C=24 3x3 s1 pad 1 15x17", (2, 15, 17, 24), (3, 3), (1, 1), p1,
+         (1, 1), (0, 255), 0, None),
+        ("C=12 2x2 s2 14x14", (2, 14, 14, 12), (2, 2), (2, 2), p0, (1, 1),
+         (0, 255), 0, None),
+        ("C=24 dil 2 3x3 s1 15x17", (2, 15, 17, 24), (3, 3), (1, 1), p0,
+         (2, 2), (0, 255), 0, None),
+        ("base + 4 bytes C=64 3x3 s1 pad 1 clamp", (2, 15, 17, 64), (3, 3),
+         (1, 1), p1, (1, 1), (20, 250), 4, None),
+        ("C=17 3x3 s1 pad 1 15x17", (2, 15, 17, 17), (3, 3), (1, 1), p1,
+         (1, 1), (0, 255), 0, None),
+        ("all 255, 3x3 s2 29x31x64", (2, 29, 31, 64), (3, 3), (2, 2), s2,
+         (1, 1), (0, 255), 0, 255),
+        ("all 0, 3x3 s2 clamp 20/250 29x31x24", (2, 29, 31, 24), (3, 3),
+         (2, 2), s2, (1, 1), (20, 250), 0, 0),
+    ]
+    for (label, shape, pool, strides, pad, dil, (lo, hi), offset,
+         fill) in max_cases:
+        x = (torch.from_numpy(u8(*shape)) if fill is None
+             else torch.full(shape, fill, dtype=torch.uint8))
+        check("u8maxpool", label, x, offset,
+              lambda xc, a=(pool, strides, pad, dil, lo, hi):
+              K.u8maxpool_cuda(xc, *a),
+              lambda xp, a=(pool, strides, pad, dil, lo, hi):
+              K.u8maxpool_plain(xp, *a))
+
+    # q8avgpool: (label, shape, pool, strides, padding, izp, scale, output
+    # zp, clamp, base offset, fill or None, bias or None for -izp * taps,
+    # as the graph sets it).
+    wrap_bias = 2**31 - 1000
+    avg_cases = [
+        ("shufflenet st0u0 56x56x24 3x3 s2", (1, 56, 56, 24), (3, 3),
+         (2, 2), s2, 128, 1 / 9, 128, (0, 255), 0, None, None),
+        ("shufflenet st1u0 28x28x240 3x3 s2", (1, 28, 28, 240), (3, 3),
+         (2, 2), s2, 128, 1 / 9, 128, (0, 255), 0, None, None),
+        ("shufflenet st2u0 14x14x480 3x3 s2", (1, 14, 14, 480), (3, 3),
+         (2, 2), s2, 128, 1 / 9, 128, (0, 255), 0, None, None),
+        ("b128 st0u0 128x56x56x24", (128, 56, 56, 24), (3, 3), (2, 2), s2,
+         128, 1 / 9, 128, (0, 255), 0, None, None),
+        ("b128 st1u0 128x28x28x240", (128, 28, 28, 240), (3, 3), (2, 2), s2,
+         128, 1 / 9, 128, (0, 255), 0, None, None),
+        ("b128 st2u0 128x14x14x480", (128, 14, 14, 480), (3, 3), (2, 2), s2,
+         128, 1 / 9, 128, (0, 255), 0, None, None),
+        ("izp 7, 2x2 s2 unpadded 10x8x12", (2, 10, 8, 12), (2, 2), (2, 2),
+         p0, 7, 0.25, 100, (0, 255), 0, None, None),
+        ("izp 250, 3x3 s1 pad 1 9x7x16", (2, 9, 7, 16), (3, 3), (1, 1), p1,
+         250, 1 / 9, 3, (0, 255), 0, None, None),
+        ("odd 11x13, C=5, izp 121 s2 pad(0,1)", (3, 11, 13, 5), (3, 3),
+         (2, 2), s2, 121, 0.37, 117, (0, 255), 0, None, None),
+        ("clamp 20/250 13x11x17", (2, 13, 11, 17), (3, 3), (2, 2), s2, 128,
+         1 / 9, 128, (20, 250), 0, None, None),
+        ("base + 8 bytes 15x17x240 3x3 s2", (2, 15, 17, 240), (3, 3), (2, 2),
+         s2, 128, 1 / 9, 128, (0, 255), 8, None, None),
+        ("base + 4 bytes 15x17x240 3x3 s2", (2, 15, 17, 240), (3, 3), (2, 2),
+         s2, 128, 1 / 9, 128, (0, 255), 4, None, None),
+        ("base + 1 byte 15x17x240 3x3 s2", (2, 15, 17, 240), (3, 3), (2, 2),
+         s2, 128, 1 / 9, 128, (0, 255), 1, None, None),
+        ("izp 0, C=64 3x3 s2 pad(0,1) 15x17", (2, 15, 17, 64), (3, 3),
+         (2, 2), s2, 0, 1 / 9, 128, (0, 255), 0, None, None),
+        ("izp 7, C=3 3x3 s2 pad 1 15x17", (2, 15, 17, 3), (3, 3), (2, 2), p1,
+         7, 0.2, 60, (0, 255), 0, None, None),
+        ("izp 250, C=512 3x3 s2 pad(0,1) 15x17", (2, 15, 17, 512), (3, 3),
+         (2, 2), s2, 250, 1 / 9, 128, (0, 255), 0, None, None),
+        ("izp 0, C=24 3x3 s1 pad 1 15x17", (2, 15, 17, 24), (3, 3), (1, 1),
+         p1, 0, 1 / 9, 128, (0, 255), 0, None, None),
+        ("C=17 2x2 s2 14x14", (2, 14, 14, 17), (2, 2), (2, 2), p0, 121,
+         0.25, 117, (0, 255), 0, None, None),
+        ("16x16 s4 all 255 izp 0 C=64 (256 taps)", (2, 20, 24, 64), (16, 16),
+         (4, 4), p0, 0, 1 / 256, 0, (0, 255), 0, 255, None),
+        ("16x16 s1 pad 1 izp 250 C=24", (2, 18, 19, 24), (16, 16), (1, 1),
+         p1, 250, 1 / 256, 128, (0, 255), 0, None, None),
+        ("16x16 s2 izp 7 C=3", (2, 19, 21, 3), (16, 16), (2, 2), s2, 7,
+         1 / 256, 128, (0, 255), 0, None, None),
+        ("17x17 s1 all 255 izp 0 C=64 (289 taps)", (2, 19, 18, 64), (17, 17),
+         (1, 1), p0, 0, 1 / 289, 0, (0, 255), 0, 255, None),
+        ("17x17 s2 pad 1 izp 250 C=24", (2, 21, 20, 24), (17, 17), (2, 2),
+         p1, 250, 1 / 289, 128, (0, 255), 0, None, None),
+        ("17x17 s1 izp 7 C=12", (2, 18, 19, 12), (17, 17), (1, 1), p0, 7,
+         1 / 289, 100, (0, 255), 0, None, None),
+        ("17x17 s3 all 0 izp 255 C=5", (2, 20, 23, 5), (17, 17), (3, 3), s2,
+         255, 1 / 289, 128, (0, 255), 0, 0, None),
+        ("all 0, izp 255, 3x3 s2 clamp 20/250 29x31x24", (2, 29, 31, 24),
+         (3, 3), (2, 2), s2, 255, 1 / 9, 128, (20, 250), 0, 0, None),
+        ("bias past 2^31 wraps, all 255 3x3 s2 29x31x64", (2, 29, 31, 64),
+         (3, 3), (2, 2), s2, 0, 2**-20, 128, (0, 255), 0, 255, wrap_bias),
+        ("bias past 2^31 wraps, 17x17 s1 C=24", (2, 19, 18, 24), (17, 17),
+         (1, 1), p0, 0, 2**-20, 128, (0, 255), 0, None, wrap_bias),
+    ]
+    for (label, shape, pool, strides, pad, izp, scale, zp, (lo, hi), offset,
+         fill, bias) in avg_cases:
+        if bias is None:
+            bias = -izp * pool[0] * pool[1]
+        params = compute_avgpool_quant_params(bias, scale, zp, lo, hi,
+                                              input_zero_point=izp)
+        x = (torch.from_numpy(u8(*shape)) if fill is None
+             else torch.full(shape, fill, dtype=torch.uint8))
+        check("q8avgpool", label, x, offset,
+              lambda xc, a=(params, pool, strides, pad):
+              K.q8avgpool_cuda(xc, *a),
+              lambda xp, a=(params, pool, strides, pad):
+              K.q8avgpool_plain(xp, *a))
+
+    want = {"u8maxpool": {(v, w) for v in POOL_VECS
+                          for w in ("3x3s2", "any")},
+            "q8avgpool": {(v, w) for v in POOL_VECS
+                          for w in ("3x3s2", "any", "any32")}}
+    for name, instances in want.items():
+        if seen[name] != instances:
+            raise AssertionError(f"{name} instances not run: "
+                                 f"{sorted(instances - seen[name])}")
 
 
 def check_bmm_views(torch, err, u8, rparams):
@@ -1167,6 +1303,7 @@ def kernel_calls(torch, model, params, spec, x):
             xh = _nchw_view(torch, a, padding, 0, torch.float16)
             yield dict(kernel="u8maxpool",
                        label=f"{name} {tuple(a.shape)} {pool} s{strides[0]}",
+                       plan=pool_tag(K.u8maxpool_cuda),
                        run=lambda a=a, l=layer: K.u8maxpool_cuda(a, *l),
                        plain=lambda a=a, l=layer: K.u8maxpool_plain(a, *l),
                        library=lambda xh=xh, l=layer: F.max_pool2d(
@@ -1180,6 +1317,7 @@ def kernel_calls(torch, model, params, spec, x):
                             torch.float32)
             yield dict(kernel="q8avgpool",
                        label=f"{name} {tuple(a.shape)} {pool} s{strides[0]}",
+                       plan=pool_tag(K.q8avgpool_cuda),
                        run=lambda a=a, l=layer: K.q8avgpool_cuda(a, *l),
                        plain=lambda a=a, l=layer: K.q8avgpool_plain(a, *l),
                        library=lambda xf=xf, l=layer: F.avg_pool2d(

@@ -46,8 +46,8 @@ SIGNATURES = {
                   + [_I, _I, _I, _P, _P] + [_I] * 6 + [_F, _P],
     "qnn_q8stem": [_I, _P, _P, _P, _P, _P] + [_I] * 14
                   + [_I] * 6 + [_F, _P],
-    "qnn_u8maxpool": [_I, _P, _P] + [_I] * 16 + [_P],
-    "qnn_q8avgpool": [_I, _P, _P] + [_I] * 19 + [_P],
+    "qnn_u8maxpool": [_I, _P, _P] + [_I] * 18 + [_P],
+    "qnn_q8avgpool": [_I, _P, _P] + [_I] * 21 + [_P],
     "qnn_q8bmm": [_I, _P, _P, _P, _P, _I64, _I64, _I, _I, _I]
                  + [_I64] * 6 + [_I] + [_I64] * 3 + [_I] * 2 + [_I] * 6
                  + [_F, _P],

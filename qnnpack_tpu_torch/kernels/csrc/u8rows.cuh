@@ -17,9 +17,9 @@
 
 namespace qnn_rows {
 
-// V bytes as words: four words for 16 bytes, two for 8, and for one byte a
-// word holding it in its low 8 bits.  Loads go through the read-only path
-// (ld.global.nc).
+// V bytes as words: four words for 16 bytes, two for 8, one for 4, and for
+// one byte a word holding it in its low 8 bits.  Loads go through the
+// read-only path (ld.global.nc).
 template <int V>
 struct Vec;
 
@@ -50,6 +50,20 @@ struct Vec<8> {
   }
   __device__ static void store(uint8_t* p, const uint32_t (&w)[kWords]) {
     *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  }
+};
+
+// (The row kernels take 16, 8 or 1 bytes; the pooling kernels,
+// pool_tile.cuh, take 4 as well.)
+template <>
+struct Vec<4> {
+  static constexpr int kWords = 1;
+  static constexpr int kBytesPerWord = 4;
+  __device__ static void load(const uint8_t* p, uint32_t (&w)[kWords]) {
+    w[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
+  }
+  __device__ static void store(uint8_t* p, const uint32_t (&w)[kWords]) {
+    *reinterpret_cast<uint32_t*>(p) = w[0];
   }
 };
 

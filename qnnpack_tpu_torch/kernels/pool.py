@@ -3,7 +3,9 @@ q8gavgpool.
 
 Ports of qnnpack_tpu/kernels/pool.py:u8maxpool_pallas, q8avgpool_pallas and
 q8gavgpool_pallas; the CUDA sources, with their design and what bounds
-them, are csrc/u8maxpool.cu, csrc/q8avgpool.cu and csrc/q8gavgpool.cu.
+them, are csrc/u8maxpool.cu, csrc/q8avgpool.cu and csrc/q8gavgpool.cu.  The
+first two share the instances and thread mapping of csrc/pool_tile.cuh,
+whose instance `pool_instance` picks.
 
 Each `*_cuda` wrapper takes the plain version for CPU tensors only.  For
 CUDA tensors it launches the kernel or raises; there is no fallback.
@@ -17,6 +19,33 @@ import torch.nn.functional as F
 from ..quant.params import AvgPoolQuantParams
 from ..quant.requantize import avgpool_quantize
 from . import _build
+
+
+# Bytes of channels a thread takes at a time, widest first
+# (csrc/pool_tile.cuh).
+POOL_VECS = (16, 8, 4, 1)
+# The window codes of csrc/pool_tile.cuh.
+WINDOWS = {"any": 0, "3x3s2": 1, "any32": 2}
+# Taps whose bytes q8avgpool sums exactly in 16-bit halves: 257 * 255 < 2^16.
+HALF_TAPS = 257
+
+
+def pool_instance(c: int, pool, strides, dilation, *bases: int,
+                  sums: bool = False):
+    """The instance of a pooling launch over `c` channels at the base
+    addresses `bases`: (vec, window).  vec, the bytes of channels a thread
+    takes, is 16 where C % 16 == 0 and every base is on a 16-byte boundary,
+    else 8, 4 or 1 on the same terms; window is "3x3s2" for a 3 x 3 window
+    at stride 2 and dilation 1 (any padding), else "any", or "any32" where
+    `sums` (q8avgpool) and the window has more than HALF_TAPS taps."""
+    vec = next(v for v in POOL_VECS
+               if c % v == 0 and all(b % v == 0 for b in bases))
+    if (tuple(pool) == (3, 3) and tuple(strides) == (2, 2)
+            and tuple(dilation) == (1, 1)):
+        return vec, "3x3s2"
+    if sums and pool[0] * pool[1] > HALF_TAPS:
+        return vec, "any32"
+    return vec, "any"
 
 
 def u8maxpool_plain(x_u8, pool_size, strides=None, padding=((0, 0), (0, 0)),
@@ -58,16 +87,20 @@ def u8maxpool_cuda(x_u8, pool_size, strides=None, padding=((0, 0), (0, 0)),
     b, h, w, c = x_u8.shape
     ho, wo = _build.out_dims(h, w, ph, pw, (sh, sw), padding, dilation)
     out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=x_u8.device)
+    vec, window = pool_instance(c, pool_size, (sh, sw), dilation,
+                                x_u8.data_ptr(), out.data_ptr())
     _build.launch(
         "qnn_u8maxpool", x_u8.device.index or 0, x_u8.data_ptr(),
         out.data_ptr(), b, h, w, c, ho, wo, ph, pw, sh, sw, padding[0][0],
         padding[1][0], dilation[0], dilation[1], output_min, output_max,
-        _build.stream_of(x_u8))
+        vec, WINDOWS[window], _build.stream_of(x_u8))
     u8maxpool_cuda.launches += 1
+    u8maxpool_cuda.instance = (vec, window)
     return out
 
 
 u8maxpool_cuda.launches = 0
+u8maxpool_cuda.instance = None  # (vec, window) of the last launch
 
 
 def _quantize_wrapped(acc, params: AvgPoolQuantParams):
@@ -112,18 +145,23 @@ def q8avgpool_cuda(x_u8, params: AvgPoolQuantParams, pool_size,
     b, h, w, c = x_u8.shape
     ho, wo = _build.out_dims(h, w, ph, pw, (sh, sw), padding)
     out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=x_u8.device)
+    vec, window = pool_instance(c, pool_size, (sh, sw), (1, 1),
+                                x_u8.data_ptr(), out.data_ptr(), sums=True)
     _build.launch(
         "qnn_q8avgpool", x_u8.device.index or 0, x_u8.data_ptr(),
         out.data_ptr(), b, h, w, c, ho, wo, ph, pw, sh, sw, padding[0][0],
         padding[1][0], params.input_zero_point, params.bias,
         params.multiplier, params.shift, params.output_zero_point,
         params.output_min_less_zero_point,
-        params.output_max_less_zero_point, _build.stream_of(x_u8))
+        params.output_max_less_zero_point, vec, WINDOWS[window],
+        _build.stream_of(x_u8))
     q8avgpool_cuda.launches += 1
+    q8avgpool_cuda.instance = (vec, window)
     return out
 
 
 q8avgpool_cuda.launches = 0
+q8avgpool_cuda.instance = None  # (vec, window) of the last launch
 
 
 def q8gavgpool_plain(x_u8, params: AvgPoolQuantParams):

@@ -175,21 +175,23 @@ def test_four_kernels_with_no_library_calls():
     second, q8avgpool of the third, q8bmm, u8rmax, u8lut32norm and u8clamp
     of the fourth) and their shared headers (the tensor-core tile of
     q8gemm, q8conv and q8stem, the requantization, the row mapping of
-    u8rmax and u8lut32norm) call no library."""
+    u8rmax and u8lut32norm, the window mapping of u8maxpool and q8avgpool)
+    call no library."""
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert names == ["q8avgpool.cu", "q8bmm.cu", "q8conv.cu", "q8dwconv.cu",
                      "q8gavgpool.cu", "q8gemm.cu", "q8stem.cu", "q8vadd.cu",
                      "u8clamp.cu", "u8lut32norm.cu", "u8maxpool.cu",
                      "u8rmax.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == \
-        ["imma_tile.cuh", "requant.cuh", "u8rows.cuh"]
+        ["imma_tile.cuh", "pool_tile.cuh", "requant.cuh", "u8rows.cuh"]
     for p in _build.CSRC.iterdir():
         text = p.read_text()
         for lib in ("cublas", "cudnn", "cutlass", "_int_mm"):
             assert lib not in text.lower(), f"{p.name} mentions {lib}"
         includes = set(re.findall(r"#include [<\"]([^>\"]+)", text))
         assert includes <= {"cuda_runtime.h", "cstdint", "requant.cuh",
-                            "imma_tile.cuh", "u8rows.cuh"}, \
+                            "imma_tile.cuh", "u8rows.cuh",
+                            "pool_tile.cuh"}, \
             f"{p.name} includes {includes}"
     assert set(tkernels.KERNELS) == {n[:-3] for n in names}
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
