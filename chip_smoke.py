@@ -7,7 +7,7 @@ Needs one CUDA GPU (built for sm_90a: an H100) and nvcc; exits non-zero
 without them.  Five main paths: four models through qnnpack_tpu_torch.entry
 (seed 0, fp32 requant) - MobileNetV2 1.0_224, ResNet-18 and ShuffleNet v1
 (groups = 3) through the graph runtime at 224, and the int8 BERT-base
-encoder at sequence 128 - and the lifecycle API's elementwise operators
+encoder at sequence 128 - and the lifecycle API's operators
 (qnnpack_tpu_torch.ops).  Phases, each of which raises on any failure:
 
   1. print the card (nvidia-smi name and power limit) and versions, build
@@ -43,8 +43,13 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
      three shortcut avgpools), bases 1, 4 and 8 bytes off 16, C = 3 to
      512, 2x2 s2, 3x3 s1 pad 1, dilation 2, clamp 20/250, izp 0, 7 and
      250, 16x16 and 17x17 avg windows, all-255 and all-0 windows and a
-     bias whose sums wrap int32: torch.equal, zero tolerance (the integer
-     math is exact);
+     bias whose sums wrap int32; q8gavgpool on every instance of
+     kernels/pool.py:gavgpool_instance (16, 8, 4 or 1 bytes a thread x
+     sums in 16-bit halves or 32 bits; each must run, as the wrapper
+     records it in q8gavgpool_cuda.instance) at the three b128 model pools,
+     bases 1, 4 and 8 bytes off 16, C = 1 to 1,280, S = 257, 258 and
+     4,096, all-255 and all-0 rows and a bias whose sum wraps int32:
+     torch.equal, zero tolerance (the integer math is exact);
   3. for each model, batch 1: the forward on the card must equal the plain
      CPU forward byte for byte (logits [1, 1000] for the image models,
      hidden states [1, 128, 768] for BERT, not constant);
@@ -64,11 +69,19 @@ encoder at sequence 128 - and the lifecycle API's elementwise operators
      .InferenceServer (16 MobileNetV2, 8 ResNet-18, 8 ShuffleNet, 8 BERT);
      every answer must equal its row of a direct batch forward;
   6. the lifecycle operators (Add, Clamp, Sigmoid, LeakyReLU, SoftArgMax,
-     ChannelShuffle), created on the card: each output must equal the same
-     operator's CPU run, and one run of all six launches q8vadd 1, u8clamp
-     1, u8rmax 1, u8lut32norm 1 and nothing else; u8clamp is timed on a
-     128x56x56x96 tensor beside torch.clamp;
-  7. time with CUDA events (warm-up, median of repeats): each model's
+     ChannelShuffle; Convolution2D at each kernel type - 1x1 gemm,
+     depthwise, dense 3x3 with dilation 2, grouped, the stem class at kzp
+     128 and 103 - under every requant scheme and per-channel;
+     FullyConnected at use_pallas=False and at odd K and N; MaxPooling2D,
+     AveragePooling2D and GlobalAveragePooling with and without a range,
+     17x17 average windows, global widths 49, 258 and 1,000), created on the
+     card: each output must equal the same operator's CPU run, each
+     operator must launch its kernel once, and one run of all of them must
+     launch exactly OPS_LAUNCHES; u8clamp is timed on a 128x56x56x96
+     tensor beside torch.clamp;
+  7. time with CUDA events (warm-up, median of repeats) the launch floor
+     (a one-element zero_(), printed beside each q8gavgpool launch), each
+     model's
      forward samples/s at batch 1 and 128, and every kernel launch of each
      forward, on that layer's real input, beside its bound
      max(bytes / 3.35 TB/s, int8 ops / 1979 TOP/s), its plain version on
@@ -130,8 +143,10 @@ EXPECTED_LAUNCHES = {
     "bert_base_s128": _counts(q8gemm=48, q8bmm=24, u8rmax=12, u8lut32norm=12,
                               q8vadd=24),
 }
-# One run of the six lifecycle operators.
-OPS_LAUNCHES = _counts(q8vadd=1, u8clamp=1, u8rmax=1, u8lut32norm=1)
+# One run of phase 6's lifecycle operators (ops_cases).
+OPS_LAUNCHES = _counts(q8gemm=7, q8dwconv=5, q8vadd=1, q8gavgpool=3,
+                       q8conv=7, q8stem=2, u8maxpool=2, q8avgpool=2,
+                       u8rmax=1, u8lut32norm=1, u8clamp=1)
 SERVED = {"mobilenet_v2": 16, "resnet18": 8, "shufflenet_v1_g3": 8,
           "bert_base_s128": 8}
 # Timed rows that are not kernels.
@@ -664,16 +679,7 @@ def check_kernels(torch, err):
                                              placed(b, offset), params),
               K.q8vadd_plain(a, b, params))
 
-    for label, shape, params in [
-            ("1x49x1280", (1, 49, 1280), compute_avgpool_quant_params(
-                -128 * 49, 1.0 / 49, 128, input_zero_point=128)),
-            ("128x49x512", (128, 49, 512), compute_avgpool_quant_params(
-                -128 * 49, 1.0 / 49, 128, input_zero_point=128)),
-            ("3x9x33 scale 3.7 zp 7", (3, 9, 33), compute_avgpool_quant_params(
-                -7 * 9, 3.7 / 9, 100, 20, 230, input_zero_point=7))]:
-        x = torch.from_numpy(u8(*shape))
-        check("q8gavgpool", label, K.q8gavgpool_cuda(x.to(cuda), params),
-              K.q8gavgpool_plain(x, params))
+    check_gavgpool(torch, err, u8, placed)
 
     # q8bmm: (label, G, M, K, N, za, zb, scheme); BERT's two products at
     # batch 1 (za = zb = 128: both biased zero points 0; za = 0: the column
@@ -979,6 +985,79 @@ def check_pools(torch, err, u8, placed):
         if seen[name] != instances:
             raise AssertionError(f"{name} instances not run: "
                                  f"{sorted(instances - seen[name])}")
+
+
+def check_gavgpool(torch, err, u8, placed):
+    """q8gavgpool against its plain version: the three b128 main-path pools
+    (and MobileNetV2's at batch 1), every instance of kernels/pool.py:
+    gavgpool_instance (16, 8, 4 or 1 bytes a thread x sums in 16-bit halves
+    or 32 bits; each must run, as the wrapper records it in
+    q8gavgpool_cuda.instance) at bases 1, 4 and 8 bytes off 16, C = 1, 3,
+    33, 512, 960 and 1,280, S = 257 (halves exactly full), 258 and 4,096
+    (32-bit sums, a flush of the halves), all-255 and all-0 rows, a bias
+    whose sum wraps int32, and input zero points 7 and 121 with an output
+    range of 20..230 (output zero point 100; at 121 the clamp binds at both
+    ends)."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.kernels.pool import GAVG_SUMS, POOL_VECS
+    from qnnpack_tpu_torch.quant.params import compute_avgpool_quant_params
+
+    seen = set()
+    # (label, shape, base offset, fill or None, ((bias, scale, output zero
+    # point[, output min, output max]), input zero point) or None for
+    # ((-128 * S, 1 / S, 128), 128))
+    wrap = ((2**31 - 5000, 2**-20, 128), 128)
+    cases = [
+        ("mobilenet b128 128x49x1280", (128, 49, 1280), 0, None, None),
+        ("resnet18 b128 128x49x512", (128, 49, 512), 0, None, None),
+        ("shufflenet b128 128x49x960", (128, 49, 960), 0, None, None),
+        ("mobilenet b1 1x49x1280", (1, 49, 1280), 0, None, None),
+        ("C=1 5x49x1", (5, 49, 1), 0, None, None),
+        ("C=3 4x49x3", (4, 49, 3), 0, None, None),
+        ("C=33 3x9x33", (3, 9, 33), 0, None, None),
+        ("base + 8 bytes 3x49x960", (3, 49, 960), 8, None, None),
+        ("base + 4 bytes 3x49x1280", (3, 49, 1280), 4, None, None),
+        ("base + 1 byte 3x49x512", (3, 49, 512), 1, None, None),
+        ("all 255, S=257 3x257x512", (3, 257, 512), 0, 255, None),
+        ("all 255, S=258 3x258x512", (3, 258, 512), 0, 255, None),
+        ("S=258, base + 8 bytes 2x258x40", (2, 258, 40), 8, None, None),
+        ("S=258, base + 4 bytes 2x258x36", (2, 258, 36), 4, None, None),
+        ("S=258, C=33 2x258x33", (2, 258, 33), 0, None, None),
+        ("all 255, S=4096 2x4096x512", (2, 4096, 512), 0, 255, None),
+        ("S=4096, C=3 base + 1 2x4096x3", (2, 4096, 3), 1, None, None),
+        ("all 0, S=257 C=24 3x257x24", (3, 257, 24), 0, 0, None),
+        ("bias wraps int32, all 255 4x49x64", (4, 49, 64), 0, 255, wrap),
+        ("bias wraps int32, S=1000 2x1000x16", (2, 1000, 16), 0, 255, wrap),
+        ("scale 3.7 zp 7 -> 100, range 20..230 3x9x33", (3, 9, 33), 0, None,
+         ((-7 * 9, 3.7 / 9, 100, 20, 230), 7)),
+        ("zp 121 -> 100, range 20..230 bound at both ends 4x49x1280",
+         (4, 49, 1280), 0, None, ((-121 * 49, 3.7 / 9, 100, 20, 230), 121)),
+        ("S=1 70000x1x4 (images past gridDim.y)", (70000, 1, 4), 0, None,
+         None),
+    ]
+    for label, shape, offset, fill, qp in cases:
+        s = shape[1]
+        args, izp = qp or ((-128 * s, 1.0 / s, 128), 128)
+        params = compute_avgpool_quant_params(*args, input_zero_point=izp)
+        x = (torch.from_numpy(u8(*shape)) if fill is None
+             else torch.full(shape, fill, dtype=torch.uint8))
+        got = K.q8gavgpool_cuda(placed(x, offset), params)
+        vec, sums = K.q8gavgpool_cuda.instance
+        seen.add((vec, sums))
+        want = K.q8gavgpool_plain(x, params)
+        compare(torch, err, "q8gavgpool", f"{label} [{vec} B, {sums}]", got,
+                want)
+        if qp is wrap and not bool((want == 0).all()):
+            raise AssertionError(f"q8gavgpool {label}: the wrapping bias "
+                                 "does not requantize to 0")
+        if "both ends" in label and (int(want.min()),
+                                     int(want.max())) != (20, 230):
+            raise AssertionError(f"q8gavgpool {label}: the range does not "
+                                 "bind at both ends")
+    want = {(v, w) for v in POOL_VECS for w in GAVG_SUMS}
+    if seen != want:
+        raise AssertionError(f"q8gavgpool instances not run: "
+                             f"{sorted(want - seen)}")
 
 
 def check_bmm_views(torch, err, u8, rparams):
@@ -1535,52 +1614,141 @@ def run_profiled_bert_b1():
                              f"{res.returncode}):\n{res.stderr[-3000:]}")
 
 
-def check_ops(torch, err):
-    """Phase 6: the lifecycle operators created on the card against the same
-    operators on the CPU, the launches of one run of all six (counts set to
-    0 just before, read just after), and u8clamp timed on a 128x56x56x96
-    tensor beside torch.clamp.  Returns (launch counts, timing rows)."""
-    from qnnpack_tpu_torch import kernels as K
-    from qnnpack_tpu_torch import ops
-
-    rng = np.random.default_rng(99)
-
+def ops_cases(torch, rng):
+    """Phase 6's operators: (operator, create kwargs, inputs, the launches
+    one run of it makes).  Convolution2D at each kernel type (1x1 gemm,
+    depthwise, dense 3x3 with dilation 2, grouped, the stem class at kzp 128
+    and at kzp 103), under every requant scheme and per-channel;
+    FullyConnected at use_pallas=False (which still launches q8gemm) and at
+    odd K and N; the pools with and without a range, AveragePooling2D at
+    17x17 (32-bit sums), GlobalAveragePooling at widths 49, 258 (with a
+    range) and 1,000."""
     def u8(*shape):
         return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.int64)
                                 .astype(np.uint8))
 
+    def weights(shape, n, k, kzp=103):
+        return dict(
+            kernel=rng.integers(0, 256, shape, dtype=np.int64)
+            .astype(np.uint8),
+            bias=rng.integers(-5000, 5000, (n,), dtype=np.int64)
+            .astype(np.int32),
+            input_zero_point=121, input_scale=0.9, kernel_zero_point=kzp,
+            kernel_scale=1.1, output_zero_point=117,
+            output_scale=0.9 * 1.1 * k**0.5 / 0.0116)
+
+    def conv(o, kh, kw, icpg, scheme, kzp=103, **kw_):
+        out = dict(weights((o, kh, kw, icpg), o, kh * kw * icpg, kzp), **kw_)
+        if scheme == "pc":
+            out["per_channel_requant"] = [
+                float(v) for v in rng.uniform(0.5, 2.0, o) * 1.1]
+        else:
+            out["requant"] = scheme
+        return out
+
     add = dict(a_zero_point=10, a_scale=0.25, b_zero_point=200, b_scale=0.75,
                sum_zero_point=128, sum_scale=0.5)
-    cases = [  # (operator, create kwargs, inputs)
-        ("Add", add, [u8(128, 1000), u8(128, 1000)]),
-        ("Clamp", dict(output_min=20, output_max=200), [u8(128, 56, 56, 96)]),
+    avg = dict(input_zero_point=121, input_scale=0.7, output_zero_point=77,
+               output_scale=0.5)
+    schemes = ("q31", "fp32", "precise", "gemmlowp", "pc")
+    p1, s2 = ((1, 1), (1, 1)), ((0, 1), (0, 1))
+    return [
+        ("Add", add, [u8(128, 1000), u8(128, 1000)], dict(q8vadd=1)),
+        ("Clamp", dict(output_min=20, output_max=200), [u8(128, 56, 56, 96)],
+         dict(u8clamp=1)),
         ("Sigmoid", dict(input_zero_point=121, input_scale=0.25),
-         [u8(64, 333)]),
+         [u8(64, 333)], {}),
         ("LeakyReLU", dict(negative_slope=0.01, input_zero_point=121,
                            input_scale=0.25, output_zero_point=100,
-                           output_scale=0.5), [u8(64, 333)]),
-        ("SoftArgMax", dict(channels=1000, input_scale=0.1), [u8(128, 1000)]),
+                           output_scale=0.5), [u8(64, 333)], {}),
+        ("SoftArgMax", dict(channels=1000, input_scale=0.1), [u8(128, 1000)],
+         dict(u8rmax=1, u8lut32norm=1)),
         ("ChannelShuffle", dict(groups=3, group_channels=80),
-         [u8(128, 28, 28, 240)]),
+         [u8(128, 28, 28, 240)], {}),
+        *[("Convolution2D", conv(96, 1, 1, 64, r), [u8(4, 28, 28, 64)],
+           dict(q8gemm=1)) for r in schemes],
+        *[("Convolution2D", conv(96, 3, 3, 1, r, groups=96, padding=p1,
+                                 strides=(2, 2) if r == "q31" else (1, 1)),
+           [u8(4, 28, 28, 96)], dict(q8dwconv=1)) for r in schemes],
+        *[("Convolution2D", conv(64, 3, 3, 32, r, padding=((2, 2), (2, 2)),
+                                 dilation=(2, 2)), [u8(4, 28, 28, 32)],
+           dict(q8conv=1)) for r in schemes],
+        ("Convolution2D", conv(48, 3, 3, 16, "q31", groups=3, padding=p1),
+         [u8(4, 28, 28, 48)], dict(q8conv=1)),
+        *[("Convolution2D", conv(32, 3, 3, 3, r, kzp=128, strides=(2, 2),
+                                 padding=s2), [u8(4, 112, 112, 3)],
+           dict(q8stem=1)) for r in ("q31", "pc")],
+        ("Convolution2D", conv(32, 3, 3, 3, "fp32", strides=(2, 2),
+                               padding=s2), [u8(4, 112, 112, 3)],
+         dict(q8conv=1)),
+        ("FullyConnected", dict(weights((1000, 1280), 1000, 1280),
+                                use_pallas=False), [u8(128, 1280)],
+         dict(q8gemm=1)),
+        ("FullyConnected", dict(weights((37, 1001), 37, 1001),
+                                requant="precise", output_min=20,
+                                output_max=240), [u8(33, 1001)],
+         dict(q8gemm=1)),
+        ("MaxPooling2D", dict(pool_size=(3, 3), strides=(2, 2), padding=s2),
+         [u8(16, 112, 112, 64)], dict(u8maxpool=1)),
+        ("MaxPooling2D", dict(pool_size=(3, 3), strides=(2, 2), padding=p1,
+                              output_min=20, output_max=250),
+         [u8(4, 28, 28, 24)], dict(u8maxpool=1)),
+        ("AveragePooling2D", dict(avg, pool_size=(3, 3), strides=(2, 2),
+                                  padding=s2), [u8(16, 28, 28, 240)],
+         dict(q8avgpool=1)),
+        ("AveragePooling2D", dict(avg, pool_size=(17, 17), strides=(1, 1),
+                                  output_min=10, output_max=240),
+         [u8(4, 20, 21, 24)], dict(q8avgpool=1)),
+        *[("GlobalAveragePooling", dict(avg, channels=c, **rng_),
+           [u8(b, width, c)], dict(q8gavgpool=1))
+          for b, width, c, rng_ in (
+              (128, 49, 1280, {}),
+              (4, 258, 40, dict(output_min=80, output_max=90)),
+              (4, 1000, 17, {}))],
     ]
+
+
+def check_ops(torch, err):
+    """Phase 6: the lifecycle operators created on the card against the same
+    operators on the CPU, byte for byte; the launches of one run of all of
+    them (counts set to 0 just before, read just after; each operator's
+    own launches as the difference across it); and u8clamp timed on a
+    128x56x56x96 tensor beside torch.clamp.  Returns (launch counts, timing
+    rows)."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch import ops
+
+    cases = ops_cases(torch, np.random.default_rng(99))
     cuda = torch.device("cuda")
-    on_card = [(name, getattr(ops, name)(**kw),
-                [x.to(cuda) for x in xs]) for name, kw, xs in cases]
+    on_card = [(name, getattr(ops, name)(**kw, device=cuda),
+                [x.to(cuda) for x in xs]) for name, kw, xs, _ in cases]
     torch.cuda.synchronize()
     K.reset_launch_counts()
-    outputs = [op(*xs) for _, op, xs in on_card]
+    outputs, own = [], []
+    for _, op, xs in on_card:
+        before = K.launch_counts()
+        outputs.append(op(*xs))
+        own.append({k: v - before[k] for k, v in K.launch_counts().items()
+                    if v != before[k]})
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    log(f"    one run of the six operators: {counts}")
+    log(f"    one run of the {len(cases)} operators: {counts}")
     if counts != OPS_LAUNCHES:
         raise AssertionError(f"operator launches {counts} != {OPS_LAUNCHES}")
-    kernel_of = {"Add": "q8vadd", "Clamp": "u8clamp",
-                 "SoftArgMax": "u8lut32norm"}
-    for (name, kw, xs), got in zip(cases, outputs):
-        want = getattr(ops, name)(**kw, device="cpu")(*xs)
+    for (name, kw, xs, launched), (_, op, _), got, mine in zip(
+            cases, on_card, outputs, own):
         label = f"ops.{name} {tuple(xs[0].shape)}"
-        if name in kernel_of:
-            compare(torch, err, kernel_of[name], label, got, want)
+        if name == "Convolution2D":
+            label += f" {op.kernel_type} " + (
+                "pc" if "per_channel_requant" in kw else kw["requant"])
+        elif name == "FullyConnected":
+            label += f" use_pallas={op.use_pallas}"
+        if mine != launched:
+            raise AssertionError(f"{label}: launched {mine}, not {launched}")
+        want = getattr(ops, name)(**kw, device="cpu")(*xs)
+        if launched:
+            # SoftArgMax's output is u8lut32norm's.
+            compare(torch, err, list(launched)[-1], label, got, want)
         elif not torch.equal(got.cpu(), want):
             raise AssertionError(f"{label}: card != CPU")
         else:
@@ -1599,6 +1767,8 @@ def check_ops(torch, err):
     log(f"    u8clamp {tuple(x.shape)}: {row['ms']:.4f} ms, bound "
         f"{2 * n / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes), plain "
         f"{row['plain_ms']:.4f} ms, torch.clamp {row['library_ms']:.4f} ms")
+    for _, op, _ in on_card:
+        op.delete()
     return counts, [row]
 
 
@@ -1704,6 +1874,11 @@ def main() -> int:
     # The float32 library products must sum the integers exactly.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # What the card takes a launch for next to no work: a one-element
+    # zero_(), timed as every kernel is.
+    one = torch.zeros(1, dtype=torch.uint8, device="cuda")
+    floor_ms = time_ms(one.zero_, torch)
+    log(f"    launch floor (one-element zero_()): {floor_ms:.4f} ms")
     forward = {}
     with torch.inference_mode():
         for model, (fn, params, x) in models.items():
@@ -1742,6 +1917,12 @@ def main() -> int:
                         f"kernels ({len(moved)} copies): {moved_ms:.4f} ms, "
                         f"{moved_ms / fwd_ms:.1%} of the forward")
                 for r in rows:
+                    if r["kernel"] == "q8gavgpool":
+                        bound = r["bytes"] / HBM_BYTES_PER_S * 1e3
+                        log(f"    {model} b{batch} q8gavgpool {r['label']}: "
+                            f"{r['ms']:.4f} ms, bound {bound:.5f} ms "
+                            f"({bound / r['ms']:.0%}), launch floor "
+                            f"{floor_ms:.4f} ms")
                     if "old_route_ms" in r:
                         log(f"    {model} b{batch} stem {r['label']}: "
                             f"q8stem {r['ms']:.4f} ms, old route im2col + "
@@ -1767,7 +1948,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        nvcc_seconds=_build.build_seconds, ptxas=ptxas, forward=forward,
+        nvcc_seconds=_build.build_seconds, ptxas=ptxas,
+        launch_floor_ms=floor_ms, forward=forward,
         launches_per_forward=launches,
         served_batches=served_batches, served_p50_ms=latency,
         kernels=kernels_line, per_shape=per_shape), indent=1))

@@ -41,7 +41,7 @@ SIGNATURES = {
     "qnn_q8dwconv": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 18
                     + [_I] * 6 + [_F, _P],
     "qnn_q8vadd": [_I, _P, _P, _P, _I64] + [_I] * 7 + [_P],
-    "qnn_q8gavgpool": [_I, _P, _P] + [_I] * 9 + [_P],
+    "qnn_q8gavgpool": [_I, _P, _P] + [_I] * 11 + [_P],
     "qnn_q8conv": [_I, _P, _P, _P, _P, _P] + [_I] * 19
                   + [_I, _I, _I, _P, _P] + [_I] * 6 + [_F, _P],
     "qnn_q8stem": [_I, _P, _P, _P, _P, _P] + [_I] * 14
@@ -162,7 +162,10 @@ def _channel_scales(scales: tuple, device):
 def requant_args(rparams, channels: int, device):
     """(scales tensor or None, [scheme, multiplier, shift, zero_point, qmin,
     qmax, scale]) for a requant params record - the qnn::Requant fields of
-    csrc/requant.cuh."""
+    csrc/requant.cuh.  Per-channel scales come from the params'
+    device_scales where it lies on `device`, with no copy."""
+    import torch
+
     from ..quant import params as qp
     if isinstance(rparams, qp.Q31Params):
         zp = rparams.zero_point
@@ -182,9 +185,11 @@ def requant_args(rparams, channels: int, device):
         if len(rparams.scales) != channels:
             raise ValueError(f"{len(rparams.scales)} channel scales for "
                              f"{channels} output channels")
-        return (_channel_scales(rparams.scales, device),
-                [4, 0, 0, rparams.zero_point, rparams.qmin, rparams.qmax,
-                 0.0])
+        scales = rparams.device_scales
+        if scales is None or scales.device != torch.device(device):
+            scales = _channel_scales(rparams.scales, device)
+        return (scales, [4, 0, 0, rparams.zero_point, rparams.qmin,
+                         rparams.qmax, 0.0])
     raise TypeError(f"not a requantization params type: {type(rparams)}")
 
 

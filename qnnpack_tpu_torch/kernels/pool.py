@@ -5,7 +5,8 @@ Ports of qnnpack_tpu/kernels/pool.py:u8maxpool_pallas, q8avgpool_pallas and
 q8gavgpool_pallas; the CUDA sources, with their design and what bounds
 them, are csrc/u8maxpool.cu, csrc/q8avgpool.cu and csrc/q8gavgpool.cu.  The
 first two share the instances and thread mapping of csrc/pool_tile.cuh,
-whose instance `pool_instance` picks.
+whose instance `pool_instance` picks; `gavgpool_instance` picks
+q8gavgpool's.
 
 Each `*_cuda` wrapper takes the plain version for CPU tensors only.  For
 CUDA tensors it launches the kernel or raises; there is no fallback.
@@ -26,8 +27,19 @@ from . import _build
 POOL_VECS = (16, 8, 4, 1)
 # The window codes of csrc/pool_tile.cuh.
 WINDOWS = {"any": 0, "3x3s2": 1, "any32": 2}
-# Taps whose bytes q8avgpool sums exactly in 16-bit halves: 257 * 255 < 2^16.
+# Taps (q8avgpool) or rows (q8gavgpool) whose bytes sum exactly in 16-bit
+# halves: 257 * 255 < 2^16.
 HALF_TAPS = 257
+# The sums forms of csrc/q8gavgpool.cu: 16-bit halves up to HALF_TAPS rows,
+# 32-bit sums for any number.
+GAVG_SUMS = {"halves": 0, "wide": 1}
+
+
+def _channel_vec(c: int, bases) -> int:
+    """Bytes of channels a thread takes: the widest of POOL_VECS that
+    divides C and every base address."""
+    return next(v for v in POOL_VECS
+                if c % v == 0 and all(b % v == 0 for b in bases))
 
 
 def pool_instance(c: int, pool, strides, dilation, *bases: int,
@@ -38,8 +50,7 @@ def pool_instance(c: int, pool, strides, dilation, *bases: int,
     else 8, 4 or 1 on the same terms; window is "3x3s2" for a 3 x 3 window
     at stride 2 and dilation 1 (any padding), else "any", or "any32" where
     `sums` (q8avgpool) and the window has more than HALF_TAPS taps."""
-    vec = next(v for v in POOL_VECS
-               if c % v == 0 and all(b % v == 0 for b in bases))
+    vec = _channel_vec(c, bases)
     if (tuple(pool) == (3, 3) and tuple(strides) == (2, 2)
             and tuple(dilation) == (1, 1)):
         return vec, "3x3s2"
@@ -164,6 +175,13 @@ q8avgpool_cuda.launches = 0
 q8avgpool_cuda.instance = None  # (vec, window) of the last launch
 
 
+def gavgpool_instance(c: int, rows: int, *bases: int):
+    """The instance of a q8gavgpool launch over `rows` rows of `c` channels
+    at the base addresses `bases`: (vec, sums).  vec as pool_instance picks
+    it; sums "halves" for at most HALF_TAPS rows, else "wide"."""
+    return _channel_vec(c, bases), ("halves" if rows <= HALF_TAPS else "wide")
+
+
 def q8gavgpool_plain(x_u8, params: AvgPoolQuantParams):
     """Plain version of the kernel: [B, S, C] -> [B, C]."""
     return _quantize_wrapped(x_u8.to(torch.int64).sum(dim=1) + params.bias,
@@ -179,14 +197,18 @@ def q8gavgpool_cuda(x_u8, params: AvgPoolQuantParams):
     _build.check_cuda("x", x_u8, torch.uint8, 3)
     b, s, c = x_u8.shape
     out = torch.empty((b, c), dtype=torch.uint8, device=x_u8.device)
+    vec, sums = gavgpool_instance(c, s, x_u8.data_ptr(), out.data_ptr())
     _build.launch(
         "qnn_q8gavgpool", x_u8.device.index or 0, x_u8.data_ptr(),
         out.data_ptr(), b, s, c, params.bias, params.multiplier,
         params.shift, params.output_zero_point,
         params.output_min_less_zero_point,
-        params.output_max_less_zero_point, _build.stream_of(x_u8))
+        params.output_max_less_zero_point, vec, GAVG_SUMS[sums],
+        _build.stream_of(x_u8))
     q8gavgpool_cuda.launches += 1
+    q8gavgpool_cuda.instance = (vec, sums)
     return out
 
 
 q8gavgpool_cuda.launches = 0
+q8gavgpool_cuda.instance = None  # (vec, sums) of the last launch

@@ -129,6 +129,11 @@ class PerChannelFP32Params:
     zero_point: int
     qmin: int
     qmax: int
+    # The scales as a float32 tensor on the device that runs the kernel,
+    # where their owner made one (ops/convolution.py:Convolution2D at
+    # create); else the kernels' wrappers make it at launch.
+    device_scales: object = dataclasses.field(default=None, compare=False,
+                                              repr=False)
 
 
 def compute_per_channel_fp32_params(scales, zero_point: int, qmin: int = 0,

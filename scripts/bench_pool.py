@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Time the pooling kernels of qnnpack_tpu_torch (u8maxpool, q8avgpool) at
-the main paths' shapes on one CUDA GPU, beside variants of their design
-and, optionally, an older tree's kernels.
+"""Time the pooling kernels of qnnpack_tpu_torch (u8maxpool, q8avgpool,
+q8gavgpool) at the main paths' shapes on one CUDA GPU, beside variants of
+their design and, optionally, an older tree's kernels.
 
     python3 scripts/bench_pool.py [--parent DIR]
 
 Shapes: ResNet-18's and ShuffleNet v1 g3's pool1 (3x3 stride 2, padding
-(0,1) on 112x112x64 and 112x112x24) and ShuffleNet's three shortcut
-avgpools (3x3 stride 2 on 56x56x24, 28x28x240, 14x14x480), at batch 128
-and at batch 1.
+(0,1) on 112x112x64 and 112x112x24), ShuffleNet's three shortcut avgpools
+(3x3 stride 2 on 56x56x24, 28x28x240, 14x14x480) and the global average
+pools of MobileNetV2, ResNet-18 and ShuffleNet (49 rows of 1280, 512 and
+960 channels), at batch 128 and at batch 1.
 Builds, each from the sources of the checkout:
-  - "shipped": csrc/u8maxpool.cu and csrc/q8avgpool.cu as they are (2
-    outputs a thread in the 3x3 stride-2 instance);
+  - "shipped": csrc/u8maxpool.cu, csrc/q8avgpool.cu and csrc/q8gavgpool.cu
+    as they are (2 outputs a thread in the 3x3 stride-2 instance);
   - the variants of TILE_VARIANTS below, each the same sources with a text
     edit of a copy of pool_tile.cuh in the build directory: 4 outputs a
     thread (kOutputs = 4), blocks of up to 256 threads (kThreads = 256,
@@ -22,15 +23,25 @@ Builds, each from the sources of the checkout:
     copies a block's three input rows into shared memory before any thread
     reads a window, as the alternative to re-reading shared columns through
     L1;
+  - the q8gavgpool variants of GAVG_VARIANTS below, text edits of a copy
+    of q8gavgpool.cu: at most 16 channel vectors a block (kLanes = 16:
+    twice the blocks, each with twice the row groups), blocks of at
+    most 128 threads (kThreads = 128: 4 row groups of 32 vectors), and the
+    wide instance where the shipped one takes halves ("gavg wide only":
+    32-bit sums at 49 rows, the halves flushed once);
   - "parent" with --parent DIR: DIR/qnnpack_tpu_torch/kernels/csrc/
-    u8maxpool.cu and q8avgpool.cu, whose C entries take no instance (the
-    one-thread-an-output kernels they replaced), e.g. a `git archive` of
-    an older commit.
+    u8maxpool.cu, q8avgpool.cu and q8gavgpool.cu with the C signatures of
+    DIR/qnnpack_tpu_torch/kernels/_build.py (an entry of the shipped
+    signature takes the shipped instance; a shorter one, as before the
+    pools had instances, none), e.g. `git archive <commit>
+    qnnpack_tpu_torch/kernels | tar -x -C DIR`.
 Every build's output is held equal to the plain version.  Prints the card
 (nvidia-smi name and power limit), ptxas's registers and spills, and one
 line per kernel, shape and build: ms (CUDA events, median of windows, as
 chip_smoke.time_ms; the builds in turns, forward then backward) beside the
-bound, bytes / 3.35 TB/s.  Writes the rows to chiprun_out/bench_pool.json.
+bound, bytes / 3.35 TB/s; beside each q8gavgpool shape, the launch floor,
+a one-element zero_() timed in the same turns.  Writes the rows to
+chiprun_out/bench_pool.json.
 Needs a GPU and nvcc; exits non-zero without them.
 """
 
@@ -38,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import shutil
 import statistics
@@ -63,6 +75,10 @@ POOLS = [
 ]
 SHAPES = [(f"{label} b{bsz}", kernel, (bsz, *hwc)) for bsz in (128, 1)
           for label, kernel, hwc in POOLS]
+# (label, [B, S, C]) of the models' global average pools.
+GAVG_SHAPES = [(f"{model} b{bsz}", (bsz, 49, c)) for bsz in (128, 1)
+               for model, c in (("mobilenet_v2", 1280), ("resnet18", 512),
+                                ("shufflenet", 960))]
 
 # Variant name -> (shipped text, variant text) pairs, each of which must
 # occur once in pool_tile.cuh.
@@ -72,6 +88,17 @@ TILE_VARIANTS = {
     "256 threads": [("constexpr int kThreads = 128;",
                      "constexpr int kThreads = 256;")],
     "1 row a block": [("int bz = kThreads / (bx * by);", "int bz = 1;")],
+}
+
+# q8gavgpool variant name -> (shipped text, variant text) pairs, each of
+# which must occur once in q8gavgpool.cu.
+GAVG_VARIANTS = {
+    "gavg 16 lanes": [("constexpr int kLanes = 32;",
+                       "constexpr int kLanes = 16;")],
+    "gavg 128 threads": [("constexpr int kThreads = 256;",
+                          "constexpr int kThreads = 128;")],
+    "gavg wide only": [("case kHalves: return f.run<V, kHalves>();",
+                        "case kHalves: return f.run<V, kWide>();")],
 }
 
 # u8maxpool's 3x3 stride-2 window with the block's three input rows staged
@@ -207,9 +234,7 @@ extern "C" int qnn_u8maxpool_staged(int device, const void* x, void* y,
 """
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# The C entries of a tree before the instances of pool_tile.cuh.
-PARENT_SIGNATURES = {"qnn_u8maxpool": [_I, _P, _P] + [_I] * 16 + [_P],
-                     "qnn_q8avgpool": [_I, _P, _P] + [_I] * 19 + [_P]}
+POOL_ENTRIES = ("qnn_u8maxpool", "qnn_q8avgpool", "qnn_q8gavgpool")
 STAGED_SIGNATURE = [_I, _P, _P] + [_I] * 9 + [_P]
 
 
@@ -235,6 +260,17 @@ def load(path, signatures):
     return lib
 
 
+def parent_signatures(root):
+    """The pool entries' signatures of the tree at `root`, from its
+    kernels/_build.py (which imports nothing outside the standard
+    library)."""
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", root / "qnnpack_tpu_torch" / "kernels" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {name: mod.SIGNATURES[name] for name in POOL_ENTRIES}
+
+
 def edited(text, edits, what):
     for old, new in edits:
         if text.count(old) != 1:
@@ -256,8 +292,11 @@ def main() -> int:
         return 2
     from chip_smoke import HBM_BYTES_PER_S, time_ms
     from qnnpack_tpu_torch.kernels import _build
-    from qnnpack_tpu_torch.kernels.pool import (WINDOWS, pool_instance,
+    from qnnpack_tpu_torch.kernels.pool import (GAVG_SUMS, WINDOWS,
+                                                gavgpool_instance,
+                                                pool_instance,
                                                 q8avgpool_plain,
+                                                q8gavgpool_plain,
                                                 u8maxpool_plain)
     from qnnpack_tpu_torch.quant.params import compute_avgpool_quant_params
 
@@ -270,11 +309,13 @@ def main() -> int:
     pools = ("u8maxpool.cu", "q8avgpool.cu")
     shipped_sig = {n: _build.SIGNATURES[n]
                    for n in ("qnn_u8maxpool", "qnn_q8avgpool")}
+    gavg_sig = {"qnn_q8gavgpool": _build.SIGNATURES["qnn_q8gavgpool"]}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
     staged_cu = tmp / "u8maxpool_staged.cu"
     staged_cu.write_text(STAGED_SOURCE)
-    builds = {"shipped": ([csrc / n for n in pools], shipped_sig)}
+    builds = {"shipped": ([csrc / n for n in pools + ("q8gavgpool.cu",)],
+                          {**shipped_sig, **gavg_sig})}
     for i, (variant, edits) in enumerate(TILE_VARIANTS.items()):
         vdir = tmp / f"variant{i}"
         vdir.mkdir()
@@ -283,14 +324,24 @@ def main() -> int:
         (vdir / "pool_tile.cuh").write_text(edited(
             (csrc / "pool_tile.cuh").read_text(), edits, "pool_tile.cuh"))
         builds[variant] = ([vdir / n for n in pools], shipped_sig)
+    for i, (variant, edits) in enumerate(GAVG_VARIANTS.items()):
+        source = tmp / f"q8gavgpool_variant{i}.cu"
+        source.write_text(edited((csrc / "q8gavgpool.cu").read_text(),
+                                 edits, "q8gavgpool.cu"))
+        builds[variant] = ([source], gavg_sig)
     builds["staged rows"] = ([staged_cu],
                              {"qnn_u8maxpool_staged": STAGED_SIGNATURE})
     if args.parent is not None:
         parent_csrc = (args.parent / "qnnpack_tpu_torch" / "kernels"
                        / "csrc")
-        builds["parent"] = ([parent_csrc / n for n in pools],
-                            PARENT_SIGNATURES)
+        builds["parent"] = ([parent_csrc / n
+                             for n in pools + ("q8gavgpool.cu",)],
+                            parent_signatures(args.parent))
     libs, ptxas = {}, {}
+    # Whether each build's pool entries take an instance.
+    instanced = {name: {e: len(sig.get(e, ())) == len(_build.SIGNATURES[e])
+                        for e in POOL_ENTRIES}
+                 for name, (_, sig) in builds.items()}
     for name, (sources, sig) in builds.items():
         out = tmp / f"build{len(libs)}.so"
         ptxas[name] = build(sources, out, csrc)
@@ -325,13 +376,15 @@ def main() -> int:
                     qp.output_max_less_zero_point]
         calls = {}
         for name, lib in libs.items():
+            if not hasattr(lib, f"qnn_{kernel}") and name != "staged rows":
+                continue
             if name == "staged rows":
                 if kernel != "u8maxpool":
                     continue
                 fn, call_args = lib.qnn_u8maxpool_staged, [
                     0, x.data_ptr(), y.data_ptr(), bsz, h, w, c, ho, wo, 0,
                     0, vec, stream]
-            elif name == "parent":
+            elif not instanced[name][f"qnn_{kernel}"]:
                 fn = getattr(lib, f"qnn_{kernel}")
                 call_args = geometry + tail + [stream]
             else:
@@ -366,6 +419,56 @@ def main() -> int:
                   f"{bound:.4f} ms ({bound / ms:.0%})", flush=True)
         del x, y, want
         torch.cuda.empty_cache()
+    one = torch.zeros(1, dtype=torch.uint8, device=cuda)
+    for label, shape in GAVG_SHAPES:
+        bsz, s, c = shape
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.int64)
+                             .astype(np.uint8)).to(cuda)
+        y = torch.empty((bsz, c), dtype=torch.uint8, device=cuda)
+        qp = compute_avgpool_quant_params(-128 * s, 1 / s, 128,
+                                          input_zero_point=128)
+        want = q8gavgpool_plain(x, qp)
+        vec, sums = gavgpool_instance(c, s, x.data_ptr(), y.data_ptr())
+        head = [0, x.data_ptr(), y.data_ptr(), bsz, s, c, qp.bias,
+                qp.multiplier, qp.shift, qp.output_zero_point,
+                qp.output_min_less_zero_point,
+                qp.output_max_less_zero_point]
+        calls = {"launch floor": one.zero_}
+        for name, lib in libs.items():
+            if not hasattr(lib, "qnn_q8gavgpool"):
+                continue
+            tail = ([vec, GAVG_SUMS[sums], stream]
+                    if instanced[name]["qnn_q8gavgpool"] else [stream])
+
+            def call(fn=lib.qnn_q8gavgpool, call_args=head + tail,
+                     name=name):
+                code = fn(*call_args)
+                if code:
+                    raise RuntimeError(f"q8gavgpool [{name}]: CUDA error "
+                                       f"{code}")
+            y.zero_()
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(y, want):
+                raise AssertionError(f"q8gavgpool [{name}] {label}: kernel "
+                                     f"!= plain")
+            calls[name] = call
+        bound = (x.numel() + y.numel()) / HBM_BYTES_PER_S * 1e3
+        times = {name: [] for name in calls}
+        for name in list(calls) + list(reversed(calls)):
+            times[name].append(time_ms(calls[name], torch))
+        floor = statistics.median(times["launch floor"])
+        for name, ts in times.items():
+            ms = statistics.median(ts)
+            rows_out.append(dict(kernel="q8gavgpool", shape=label,
+                                 input=list(shape), build=name,
+                                 instance=[vec, sums], ms=ms, runs=ts,
+                                 bound_ms=bound, floor_ms=floor))
+            print(f"  q8gavgpool {label:22s} [{name:16s}] {ms:.4f} ms "
+                  f"({', '.join(f'{t:.4f}' for t in ts)}), bound "
+                  f"{bound:.5f} ms ({bound / ms:.0%}), launch floor "
+                  f"{floor:.4f} ms", flush=True)
+        del x, y, want
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "bench_pool.json").write_text(json.dumps(

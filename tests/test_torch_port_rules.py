@@ -104,7 +104,22 @@ def test_bert_entry_and_builder_raise_without_gpu(no_gpu):
                        input_scale=0.1, output_zero_point=0,
                        output_scale=0.1)),
     ("SoftArgMax", dict(channels=8, input_scale=0.1)),
-    ("ChannelShuffle", dict(groups=2, group_channels=4))])
+    ("ChannelShuffle", dict(groups=2, group_channels=4)),
+    ("Convolution2D", dict(kernel=np.zeros((4, 3, 3, 2), np.uint8), bias=None,
+                           input_zero_point=0, input_scale=0.1,
+                           kernel_zero_point=0, kernel_scale=0.1,
+                           output_zero_point=0, output_scale=1.0)),
+    ("FullyConnected", dict(kernel=np.zeros((4, 2), np.uint8), bias=None,
+                            input_zero_point=0, input_scale=0.1,
+                            kernel_zero_point=0, kernel_scale=0.1,
+                            output_zero_point=0, output_scale=1.0)),
+    ("MaxPooling2D", dict(pool_size=(2, 2))),
+    ("AveragePooling2D", dict(pool_size=(2, 2), input_zero_point=0,
+                              input_scale=0.1, output_zero_point=0,
+                              output_scale=0.1)),
+    ("GlobalAveragePooling", dict(channels=8, input_zero_point=0,
+                                  input_scale=0.1, output_zero_point=0,
+                                  output_scale=0.1))])
 def test_operators_default_to_gpu_and_raise_without_one(no_gpu, name,
                                                         kwargs):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
