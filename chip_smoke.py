@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA GPU (built for sm_90a: an H100) and nvcc; exits non-zero
-without them.  Five main paths: four models through qnnpack_tpu_torch.entry
-(seed 0, fp32 requant) - MobileNetV2 1.0_224, ResNet-18 and ShuffleNet v1
-(groups = 3) through the graph runtime at 224, and the int8 BERT-base
-encoder at sequence 128 - and the lifecycle API's operators
-(qnnpack_tpu_torch.ops).  Phases, each of which raises on any failure:
+Needs one CUDA GPU (built for sm_90a: an H100), nvcc and a host C/C++
+compiler; exits non-zero without them.  Seven main paths: four models
+through qnnpack_tpu_torch.entry (seed 0, fp32 requant) - MobileNetV2
+1.0_224, ResNet-18 and ShuffleNet v1 (groups = 3) through the graph
+runtime at 224, and the int8 BERT-base encoder at sequence 128 - the
+lifecycle API's operators (qnnpack_tpu_torch.ops), and the two bundled
+int8 TFLite models (assets/mobilenet_v2_int8.tflite, assets/
+squeezenet_v11_int8.tflite) through qnnpack_tpu_torch.io.import_tflite
+and the graph runtime.  Phases, each of which raises on any failure:
 
   1. print the card (nvidia-smi name and power limit) and versions, build
      the twelve CUDA kernels from qnnpack_tpu_torch/kernels/csrc/;
@@ -79,7 +82,20 @@ encoder at sequence 128 - and the lifecycle API's operators
      operator must launch its kernel once, and one run of all of them must
      launch exactly OPS_LAUNCHES; u8clamp is timed on a 128x56x56x96
      tensor beside torch.clamp;
-  7. time with CUDA events (warm-up, median of repeats) the launch floor
+  7. the imported TFLite models (per-layer zero points, add rescales and
+     per-channel scales): each imported with device="cuda" and "cpu"; 4
+     synth_images (seed 17) quantized as ACCURACY.json's flow does
+     (quantize_input, + 128) go onto the card through io.BatchPrefetcher,
+     and each model's card forward must equal its CPU forward byte for
+     byte; one batch-1 forward launches exactly IMPORTED_LAUNCHES (counts
+     set to 0 just before, read just after) and misses the per-channel
+     scale cache (_build._channel_scales) not once, as every scale lies on
+     the card since the import; the native library (built from native/)
+     resizes and quantizes a batch through io.image_pipeline within one
+     quantum of its numpy version; 8 single-sample requests to the imported
+     MobileNetV2 through InferenceServer each equal their batch-forward
+     row.  Phase 8 times both as it times the four models;
+  8. time with CUDA events (warm-up, median of repeats) the launch floor
      (a one-element zero_(), printed beside each q8gavgpool launch), each
      model's
      forward samples/s at batch 1 and 128, and every kernel launch of each
@@ -104,8 +120,9 @@ encoder at sequence 128 - and the lifecycle API's operators
      forward's own views of the qkv output.
 
 Prints the {"kernels": [...]} line (launches over one batch-1 forward of
-each path, times summed over one batch-128 forward of each path; u8clamp's
-over the lifecycle run and the 128x56x56x96 tensor), the nvidia-smi line
+each path, launches_by_path beside them; times summed over one batch-128
+forward of each of the four entry models; u8clamp's over the lifecycle run
+and the 128x56x56x96 tensor), the nvidia-smi line
 and, last, {"ok": true, "device": {...}}.  Per-shape timings, nvcc's time
 and the ptxas lines go to chiprun_out/chip_smoke.json.
 """
@@ -143,6 +160,21 @@ EXPECTED_LAUNCHES = {
     "bert_base_s128": _counts(q8gemm=48, q8bmm=24, u8rmax=12, u8lut32norm=12,
                               q8vadd=24),
 }
+# One batch-1 forward of each imported TFLite model (phase 7): every 1x1
+# stride-1 conv and the FC on q8gemm, the depthwise convs on q8dwconv, the
+# 3x3 convs of SqueezeNet's fire modules on q8conv; its 8 concats are
+# PyTorch copies.
+IMPORTED = {
+    "mobilenet_v2_tflite": "assets/mobilenet_v2_int8.tflite",
+    "squeezenet_v11_tflite": "assets/squeezenet_v11_int8.tflite",
+}
+IMPORTED_LAUNCHES = {
+    "mobilenet_v2_tflite": _counts(q8gemm=35, q8stem=1, q8dwconv=17,
+                                   q8vadd=10, q8gavgpool=1),
+    "squeezenet_v11_tflite": _counts(q8stem=1, q8gemm=17, q8conv=8,
+                                     u8maxpool=3, q8gavgpool=1),
+}
+IMPORTED_SERVED = {"mobilenet_v2_tflite": 8}
 # One run of phase 6's lifecycle operators (ops_cases).
 OPS_LAUNCHES = _counts(q8gemm=7, q8dwconv=5, q8vadd=1, q8gavgpool=3,
                        q8conv=7, q8stem=2, u8maxpool=2, q8avgpool=2,
@@ -1344,6 +1376,7 @@ def kernel_calls(torch, model, params, spec, x):
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.nn.conv import dense_conv_route, im2col
     from qnnpack_tpu_torch.nn.elementwise import x8zip
+    from qnnpack_tpu_torch.nn.packing import PackedGemmWeights
     F = torch.nn.functional
 
     if model == "bert_base_s128":
@@ -1403,7 +1436,8 @@ def kernel_calls(torch, model, params, spec, x):
                            xf, l[1], l[2], divisor_override=1),
                        bytes=a.numel() + out.numel(),
                        ops=out.numel() * pool[0] * pool[1])
-        elif tag == "gemm" or (tag == "conv" and layer.kind == "gemm"):
+        elif (tag == "gemm" or isinstance(p, PackedGemmWeights)
+              or (tag == "conv" and layer.kind == "gemm")):
             a2 = a.reshape(-1, a.shape[-1])
             m, k = a2.shape
             yield dict(kernel="q8gemm", label=f"{name} {m}x{k}->{p.n}",
@@ -1772,6 +1806,132 @@ def check_ops(torch, err):
     return counts, [row]
 
 
+def serve_and_check(torch, name, fn, params, samples, expected):
+    """Serve `samples` one request each through InferenceServer; every
+    answer must equal its row of one direct batch forward, and the launches
+    must be `expected` per batch.  Returns (batches, p50 latency ms)."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.serving import InferenceServer
+    with torch.inference_mode():
+        direct = fn(params, torch.from_numpy(samples).cuda()).cpu().numpy()
+    K.reset_launch_counts()
+    server = InferenceServer(lambda xb: fn(params, xb), samples.shape[1:],
+                             max_batch=8)
+    with server:
+        futures = [server.submit(x, block=True) for x in samples]
+        answers = [f.result(timeout=300) for f in futures]
+    torch.cuda.synchronize()
+    served = K.launch_counts()
+    for i, ans in enumerate(answers):
+        if not np.array_equal(ans, direct[i]):
+            raise AssertionError(f"{name}: served answer {i} != batch "
+                                 "forward row")
+    batches = server.stats.batches
+    want = {k: v * batches for k, v in expected.items()}
+    if served != want:
+        raise AssertionError(f"{name}: served launches {served} for "
+                             f"{batches} batches")
+    latency = server.stats.latency_percentile(50)
+    log(f"    {len(samples)} answers equal the batch forward; {batches} "
+        f"batches, launches {served}, p50 latency {latency:.2f} ms")
+    return batches, latency
+
+
+def check_imported(torch):
+    """Phase 7: the bundled TFLite models imported onto the card against
+    their CPU imports.  Returns {model: (fn, params, x batch 1)}, their
+    launch counts, served batches and p50 latencies."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.io import BatchPrefetcher, image_pipeline
+    from qnnpack_tpu_torch.io.accuracy import quantize_input, synth_images
+    from qnnpack_tpu_torch.io.native import resize_quantize_plain
+    from qnnpack_tpu_torch.io.tflite_import import import_tflite
+    from qnnpack_tpu_torch.kernels import _build
+    from qnnpack_tpu_torch.models.graph import graph_forward
+
+    root = Path(__file__).resolve().parent
+    images = synth_images(4, seed=17)
+    models, launches, served, latency = {}, {}, {}, {}
+    for name, asset in IMPORTED.items():
+        log(f"[7] {name}: {asset} imported on the card and on the CPU")
+        params, spec, meta = import_tflite(root / asset, device="cuda")
+        params_cpu, spec_cpu, _ = import_tflite(root / asset, device="cpu")
+        izp, scale = meta["input_zero_point"], meta["input_scale"]
+
+        def to_u8(batch, scale=scale, izp=izp):
+            q = quantize_input(batch, scale, izp - 128)
+            return (q.astype(np.int16) + 128).astype(np.uint8)
+
+        staged = list(BatchPrefetcher([images], preprocess=to_u8))
+        if len(staged) != 1 or staged[0].device.type != "cuda":
+            raise AssertionError(f"prefetcher gave {staged}")
+        x4 = staged[0]
+
+        def fn(p, x, spec=spec):
+            return graph_forward(p, spec, x)
+
+        fn.spec = spec
+        misses = _build._channel_scales.cache_info().misses
+        with torch.inference_mode():
+            y4 = fn(params, x4)
+            y4_cpu = graph_forward(params_cpu, spec_cpu, torch.from_numpy(
+                to_u8(images)))
+            if tuple(y4.shape) != (4, 1000) or y4.dtype != torch.uint8:
+                raise AssertionError(f"{name} output {tuple(y4.shape)} "
+                                     f"{y4.dtype}")
+            if not torch.equal(y4.cpu(), y4_cpu):
+                diff = (y4.cpu().int() - y4_cpu.int()).abs()
+                raise AssertionError(
+                    f"{name} batch-4 forward differs in "
+                    f"{int((diff > 0).sum())} values, max |err| "
+                    f"{int(diff.max())}")
+            if any(len(torch.unique(row)) < 2 for row in y4_cpu):
+                raise AssertionError(f"{name}: a constant output row")
+            log(f"    batch 4 through BatchPrefetcher: card equals CPU; "
+                f"top-1 {y4_cpu.argmax(dim=1).tolist()}")
+            x1 = x4[:1].contiguous()
+            K.reset_launch_counts()
+            y1 = fn(params, x1)
+            torch.cuda.synchronize()
+            launches[name] = K.launch_counts()
+        new_misses = _build._channel_scales.cache_info().misses - misses
+        log(f"    launches over one batch-1 forward: {launches[name]}")
+        if launches[name] != IMPORTED_LAUNCHES[name]:
+            raise AssertionError(f"launches {launches[name]} != "
+                                 f"{IMPORTED_LAUNCHES[name]}")
+        if not torch.equal(y1, y4[:1]):
+            raise AssertionError(f"{name}: batch-1 forward != row 0 of "
+                                 "batch 4")
+        if new_misses:
+            raise AssertionError(f"{name}: {new_misses} per-channel scale "
+                                 "cache misses (scales not on the card)")
+        log("    per-channel scales: no _channel_scales miss (device_scales)")
+        models[name] = (fn, params, x1)
+        if name in IMPORTED_SERVED:
+            log(f"[7] {name} InferenceServer: {IMPORTED_SERVED[name]} "
+                "single-sample requests")
+            samples = to_u8(synth_images(IMPORTED_SERVED[name], seed=18))
+            served[name], latency[name] = serve_and_check(
+                torch, name, fn, params, samples, IMPORTED_LAUNCHES[name])
+        del params_cpu
+
+    log("[7] io.image_pipeline: native resize + quantize onto the card")
+    small = [synth_images(2, size=s, seed=19) for s in (160, 97)]
+    got = list(image_pipeline(small, (224, 224), 0.0078431, 128))
+    for src, g in zip(small, got):
+        want = resize_quantize_plain(src, (224, 224), 0.0078431, 128)
+        diff = np.abs(g.cpu().numpy().astype(np.int32) - want)
+        if g.device.type != "cuda" or diff.max() > 1 or \
+                (diff != 0).mean() >= 0.01:
+            raise AssertionError(
+                f"image_pipeline {src.shape}: max |err| {diff.max()}, "
+                f"{(diff != 0).mean():.4f} of bytes differ")
+        log(f"    {src.shape} -> {tuple(g.shape)} on {g.device}: within "
+            f"one quantum of the numpy version ({(diff != 0).mean():.5f} "
+            "of bytes differ)")
+    return models, launches, served, latency
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -1782,7 +1942,6 @@ def main() -> int:
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.entry import entry, input_shape
     from qnnpack_tpu_torch.kernels import _build
-    from qnnpack_tpu_torch.serving import InferenceServer
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1841,36 +2000,21 @@ def main() -> int:
         log(f"[5] {model} InferenceServer: {count} single-sample requests")
         samples = rng.integers(0, 256, (count,) + input_shape(model),
                                dtype=np.int64).astype(np.uint8)
-        with torch.inference_mode():
-            direct = fn(params, torch.from_numpy(samples).cuda()).cpu().numpy()
-        K.reset_launch_counts()
-        server = InferenceServer(lambda xb, fn=fn, p=params: fn(p, xb),
-                                 input_shape(model), max_batch=8)
-        with server:
-            futures = [server.submit(x, block=True) for x in samples]
-            answers = [f.result(timeout=300) for f in futures]
-        torch.cuda.synchronize()
-        served = K.launch_counts()
-        for i, ans in enumerate(answers):
-            if not np.array_equal(ans, direct[i]):
-                raise AssertionError(f"served answer {i} != batch forward "
-                                     "row")
-        batches = server.stats.batches
-        want = {k: v * batches for k, v in EXPECTED_LAUNCHES[model].items()}
-        if served != want:
-            raise AssertionError(f"served launches {served} for {batches} "
-                                 "batches")
-        served_batches[model] = batches
-        latency[model] = server.stats.latency_percentile(50)
-        log(f"    {count} answers equal the batch forward; {batches} "
-            f"batches, launches {served}, p50 latency {latency[model]:.2f} "
-            "ms")
+        served_batches[model], latency[model] = serve_and_check(
+            torch, model, fn, params, samples, EXPECTED_LAUNCHES[model])
 
     log("[6] lifecycle operators on the card against their CPU runs")
     per_shape = {}
     launches["ops"], per_shape["ops b128"] = check_ops(torch, max_err)
 
-    log("[7] timings (CUDA events, median of repeats)")
+    imported, imported_launches, imported_served, imported_latency = \
+        check_imported(torch)
+    models.update(imported)
+    launches.update(imported_launches)
+    served_batches.update(imported_served)
+    latency.update(imported_latency)
+
+    log("[8] timings (CUDA events, median of repeats)")
     # The float32 library products must sum the integers exactly.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1931,7 +2075,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     b128 = [r for key, rows in per_shape.items() if key.endswith("b128")
-            for r in rows]
+            and key.split()[0] not in IMPORTED for r in rows]
     kernels_line = []
     for name in K.KERNELS:
         s = summarize(b128, name)

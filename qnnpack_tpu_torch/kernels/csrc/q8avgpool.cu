@@ -38,6 +38,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "pool_tile.cuh"
 #include "requant.cuh"
 
@@ -207,8 +208,10 @@ extern "C" int qnn_q8avgpool(int device, const void* x, void* y, int batch,
                              int bias, int multiplier, int shift,
                              int zero_point, int lo, int hi, int vec,
                              int window, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   const Shape s{batch,    height,   width,    channels, out_height,
                 out_width, pool_h,  pool_w,   stride_h, stride_w,
                 pad_top,  pad_left, 1,        1,        0,

@@ -55,6 +55,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "imma_tile.cuh"
 
 namespace {
@@ -500,8 +501,10 @@ extern "C" int qnn_q8bmm(int device, const void* a, const void* b,
                          int za, int zb, int scheme, int multiplier,
                          int shift, int zero_point, int qmin, int qmax,
                          float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (g < 0 || g1 < 1 || g % g1 != 0 || m < 0 || n < 0 || k < 0 ||
       (b_kmajor != 0 && b_kmajor != 1) || za < 0 || za > 255 || zb < 0 ||
       zb > 255 || sa0 < 0 || sa1 < 0 || lda < 0 || sb0 < 0 || sb1 < 0 ||

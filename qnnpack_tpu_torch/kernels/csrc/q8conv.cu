@@ -42,6 +42,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "imma_tile.cuh"
 
 namespace {
@@ -246,8 +247,10 @@ extern "C" int qnn_q8conv(int device, const void* a, const void* w,
                           void* counters, int scheme, int multiplier,
                           int shift, int zero_point, int qmin, int qmax,
                           float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   const int64_t m = static_cast<int64_t>(batch) * out_height * out_width;
   if (m == 0 || out_channels == 0) return 0;
   if (groups < 1 || channels % groups != 0 || out_channels % groups != 0) {

@@ -53,6 +53,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "requant.cuh"
 
 namespace {
@@ -405,8 +406,10 @@ extern "C" int qnn_q8dwconv(int device, const void* a, const void* w,
                             int scheme, int multiplier, int shift,
                             int zero_point, int qmin, int qmax, float scale,
                             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (static_cast<int64_t>(batch) * out_height * out_width * channels == 0) {
     return 0;
   }

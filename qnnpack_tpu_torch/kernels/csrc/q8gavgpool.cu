@@ -40,6 +40,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "requant.cuh"
 #include "u8rows.cuh"
 
@@ -248,8 +249,10 @@ extern "C" int qnn_q8gavgpool(int device, const void* x, void* y, int batch,
                               int rows, int channels, int bias, int multiplier,
                               int shift, int zero_point, int lo, int hi,
                               int vec, int sums, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   const bool vec_ok = (vec == 16 || vec == 8 || vec == 4 || vec == 1) &&
                       channels % vec == 0 && qnn_rows::aligned(x, vec) &&
                       qnn_rows::aligned(y, vec);

@@ -30,6 +30,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "imma_tile.cuh"
 
 namespace {
@@ -153,8 +154,10 @@ extern "C" int qnn_q8gemm(int device, const void* a, const void* w,
                           void* workspace, void* counters, int scheme,
                           int multiplier, int shift, int zero_point, int qmin,
                           int qmax, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (m == 0 || n == 0) return 0;
   const int steps = kp / im::kStepK;
   if (kp % im::kStepK != 0 || kp < k || steps < 1 || splits < 1 ||

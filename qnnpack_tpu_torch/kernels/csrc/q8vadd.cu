@@ -28,6 +28,8 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -98,8 +100,10 @@ extern "C" int qnn_q8vadd(int device, const void* a, const void* b, void* y,
                           int64_t n, int zero_point_product, int a_multiplier,
                           int b_multiplier, int shift, int y_zero_point,
                           int y_min, int y_max, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (shift < 1 || shift > 31) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const AddArgs p{static_cast<uint32_t>(zero_point_product),

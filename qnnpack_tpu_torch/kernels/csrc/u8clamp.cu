@@ -13,6 +13,8 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -52,8 +54,10 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int qnn_u8clamp(int device, const void* x, void* y, int64_t n,
                            int lo, int hi, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (n == 0) return 0;
   const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(y)) & 15) == 0;

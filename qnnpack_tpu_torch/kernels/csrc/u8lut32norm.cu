@@ -44,6 +44,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "u8rows.cuh"
 
 namespace {
@@ -279,8 +280,10 @@ struct Launch {
 extern "C" int qnn_u8lut32norm(int device, const void* x, const void* rmax,
                                const void* lut, void* y, int64_t rows, int n,
                                int vec, int lanes, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (!qnn_rows::row_instance_ok(vec, lanes, n, x, y)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

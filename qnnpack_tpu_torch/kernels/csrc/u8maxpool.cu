@@ -35,6 +35,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "pool_tile.cuh"
 
 namespace {
@@ -126,8 +127,10 @@ extern "C" int qnn_u8maxpool(int device, const void* x, void* y, int batch,
                              int pad_top, int pad_left, int dil_h, int dil_w,
                              int output_min, int output_max, int vec,
                              int window, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   const Shape s{batch,    height,   width,    channels, out_height,
                 out_width, pool_h,  pool_w,   stride_h, stride_w,
                 pad_top,  pad_left, dil_h,    dil_w,    0,

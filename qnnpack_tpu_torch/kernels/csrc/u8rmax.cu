@@ -19,6 +19,7 @@
 
 #include <cstdint>
 
+#include "device_guard.cuh"
 #include "u8rows.cuh"
 
 namespace {
@@ -127,8 +128,10 @@ struct Launch {
 // that n or the bases do not allow is refused.
 extern "C" int qnn_u8rmax(int device, const void* x, void* y, int64_t rows,
                           int n, int vec, int lanes, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (!qnn_rows::row_instance_ok(vec, lanes, n, x, x)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

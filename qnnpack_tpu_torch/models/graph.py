@@ -6,7 +6,9 @@ calls in the same order as the JAX builder, so one seed gives the same raw
 weights, layer specs and requant params.  Tags run here:
 
     conv     dense, grouped or depthwise conv (nn.conv.q8conv2d: q8stem,
-             q8conv or q8dwconv kernel)
+             q8conv or q8dwconv kernel); a conv whose record is GEMM
+             weights (an imported 1x1, stride-1, unpadded dense conv,
+             `is_gemm_conv`) runs nn.gemm.q8gemm: q8gemm kernel
     gemm     1x1-conv / fully-connected (nn.gemm.q8gemm: q8gemm kernel)
     maxpool  (nn.pool.u8maxpool2d: u8maxpool kernel)
     avgpool  (nn.pool.q8avgpool2d: q8avgpool kernel)
@@ -24,8 +26,10 @@ equal-width slots followed by shuffle(g) is one interleaving copy.
 Not ported yet, raising NotImplementedError with its ROADMAP item: the tag
 deconv and the builder method deconv.
 
-All activations share one synthetic quantization (scale 0.1, zp 128), so
-adds and concats need no rescale.
+GraphBuilder's activations share one synthetic quantization (scale 0.1,
+zp 128), so its adds and concats need no rescale; a graph imported by
+io/tflite_import.py carries each layer's own zero points, add rescales and
+per-channel scales.
 """
 
 from __future__ import annotations
@@ -73,6 +77,16 @@ class ConvSpec:
     padding: tuple
     groups: int
     rparams: Any
+
+
+def is_gemm_conv(spec: ConvSpec, kernel_height: int,
+                 kernel_width: int) -> bool:
+    """Whether a `conv` layer is QNNPACK's gemm ukernel type
+    (src/convolution.c:180-189): 1x1, stride 1, unpadded, ungrouped."""
+    return (spec.kind == "conv" and spec.groups == 1
+            and (kernel_height, kernel_width) == (1, 1)
+            and tuple(spec.strides) == (1, 1)
+            and all(tuple(p) == (0, 0) for p in spec.padding))
 
 
 @dataclasses.dataclass
@@ -257,7 +271,11 @@ def _graph_layer(tag, payload, p, x, env):
     elif tag == "gemm":
         x = q8gemm(x, p, payload.rparams)
     elif tag == "conv":
-        x = q8conv2d(x, p, payload.rparams, payload.strides, payload.padding)
+        if isinstance(p, PackedGemmWeights):
+            x = q8gemm(x, p, payload.rparams)
+        else:
+            x = q8conv2d(x, p, payload.rparams, payload.strides,
+                         payload.padding)
     elif tag == "flatten":
         x = x.reshape(x.shape[0], -1)
     elif tag == "pad":
@@ -295,18 +313,43 @@ def _field(record, name):
     return record[name] if isinstance(record, Mapping) else getattr(record, name)
 
 
-def packed_from_jax(name, record, kernel, *, gemm: bool, groups: int,
+def _jax_fields(record):
+    """(kernel dims without O, O, input zero point, kernel zero point) from
+    a JAX packed record's own fields: `k`, `n` of a GEMM record, the conv
+    shape of a conv record."""
+    izp = int(_field(record, "input_zero_point"))
+    kzp = int(_field(record, "kernel_zero_point"))
+    try:
+        return (int(_field(record, "k")),), int(_field(record, "n")), izp, kzp
+    except (AttributeError, KeyError):
+        dims = tuple(int(_field(record, f)) for f in (
+            "kernel_height", "kernel_width", "group_input_channels"))
+        o = int(_field(record, "group_output_channels")) * int(
+            _field(record, "groups"))
+        return dims, o, izp, kzp
+
+
+def packed_from_jax(name, record, kernel=None, *, gemm: bool, groups: int,
                     device):
     """One of the port's packed records from a JAX packed record.
 
-    `record` holds numpy `w` and `bias_folded` (as attributes or keys);
+    `record` holds numpy `w` and `bias_folded` (as attributes or keys).
     `kernel` is the layer's raw uint8 kernel [O, ...], which gives the
-    expected shapes: w [K, O] for a GEMM, [Kh, Kw, Icpg, O] for a conv."""
-    o = kernel.shape[0]
+    expected shapes (w [K, O] for a GEMM, [Kh, Kw, Icpg, O] for a conv)
+    under GraphBuilder's zero points ACT_ZP and KERNEL_ZP.  Without it (an
+    imported graph keeps no raw weights) the shapes and zero points come
+    from the record's own fields; a 1x1 conv record taken as GEMM weights
+    (`gemm`, `is_gemm_conv`) gives w [Icpg, O]."""
     w = np.asarray(_field(record, "w"))
     bias = np.asarray(_field(record, "bias_folded"))
-    want = ((int(np.prod(kernel.shape[1:])), o) if gemm
-            else tuple(kernel.shape[1:]) + (o,))
+    if kernel is not None:
+        dims, o = tuple(kernel.shape[1:]), kernel.shape[0]
+        izp, kzp = ACT_ZP, KERNEL_ZP
+    else:
+        dims, o, izp, kzp = _jax_fields(record)
+        if gemm and w.ndim == 4 and w.shape[:2] == (1, 1):
+            w = w.reshape(-1, w.shape[-1])
+    want = (int(np.prod(dims)), o) if gemm else dims + (o,)
     if w.shape != want or w.dtype != np.int8:
         raise ValueError(f"{name}: w {w.shape} {w.dtype}, want {want} int8")
     if bias.shape != (o,) or bias.dtype != np.int32:
@@ -316,31 +359,43 @@ def packed_from_jax(name, record, kernel, *, gemm: bool, groups: int,
     b_t = as_tensor(bias, torch.int32, device)
     if gemm:
         return PackedGemmWeights(
-            w=w_t, bias_folded=b_t, k=want[0], n=o, input_zero_point=ACT_ZP,
-            kernel_zero_point=KERNEL_ZP)
-    kh, kw, icpg = kernel.shape[1:]
+            w=w_t, bias_folded=b_t, k=want[0], n=o, input_zero_point=izp,
+            kernel_zero_point=kzp)
+    kh, kw, icpg = dims
     return PackedConvWeights(
         w=w_t, bias_folded=b_t, kernel_height=kh, kernel_width=kw,
         group_input_channels=icpg, group_output_channels=o // groups,
-        groups=groups, input_zero_point=ACT_ZP, kernel_zero_point=KERNEL_ZP)
+        groups=groups, input_zero_point=izp, kernel_zero_point=kzp)
 
 
 def params_from_jax(arrays, spec: GraphSpec, *, device="cuda"):
     """The port's packed records from the JAX package's packed graph params.
 
     `arrays` is the JAX params list with numpy leaves (or None for
-    weightless layers); `spec` is the port's spec of the same graph."""
+    weightless layers); `spec` is the port's spec of the same graph.  A
+    layer without raw weights in `spec` (an imported graph) takes its
+    shapes and zero points from its record, and an imported 1x1 conv
+    becomes GEMM weights, as io/tflite_import.py packs it."""
     dev = resolve_device(device)
     if len(arrays) != len(spec.layers):
         raise ValueError(f"{len(arrays)} records for {len(spec.layers)} layers")
     out = []
     for (tag, name, payload), rec, raw in zip(spec.layers, arrays,
                                               spec.raw_weights):
-        if raw is None:
+        if rec is None or tag not in ("conv", "gemm"):
             if rec is not None:
                 raise ValueError(f"{name}: weightless layer got a record")
+            if raw is not None:
+                raise ValueError(f"{name}: layer with weights got no record")
             out.append(None)
             continue
-        out.append(packed_from_jax(name, rec, raw[0], gemm=tag == "gemm",
+        if raw is not None:
+            kernel, gemm = raw[0], tag == "gemm"
+        else:
+            kernel = None
+            gemm = tag == "gemm" or is_gemm_conv(
+                payload, int(_field(rec, "kernel_height")),
+                int(_field(rec, "kernel_width")))
+        out.append(packed_from_jax(name, rec, kernel, gemm=gemm,
                                    groups=payload.groups, device=dev))
     return out

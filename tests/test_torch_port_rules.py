@@ -1,7 +1,10 @@
 """Rules of the PyTorch/CUDA port that a CPU run can check.
 
-- qnnpack_tpu_torch and chip_smoke.py import neither jax nor qnnpack_tpu;
+- qnnpack_tpu_torch and chip_smoke.py import neither jax nor qnnpack_tpu,
+  nor flatbuffers (the TFLite importer reads the file itself);
 - the entry points raise when a GPU is asked for and absent;
+- every C entry point of kernels/csrc/ switches the CUDA device only
+  through qnn::DeviceGuard, which gives the caller's device back;
 - a forward on CPU tensors runs the plain versions and launches nothing;
 - the ctypes bindings agree with the C entry points of kernels/csrc/, and
   the scheme codes with csrc/requant.cuh;
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from qnnpack_tpu_torch import io as tio
 from qnnpack_tpu_torch import kernels as tkernels
 from qnnpack_tpu_torch import ops as tops
 from qnnpack_tpu_torch.device import resolve_device
@@ -52,7 +56,7 @@ def imported_modules(path):
 def test_port_imports_no_jax(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "qnnpack_tpu"), \
+        assert top not in ("jax", "jaxlib", "qnnpack_tpu", "flatbuffers"), \
             f"{path.relative_to(ROOT)} imports {mod}"
 
 
@@ -124,6 +128,16 @@ def test_operators_default_to_gpu_and_raise_without_one(no_gpu, name,
                                                         kwargs):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         getattr(tops, name)(**kwargs)
+
+
+def test_io_entry_points_raise_without_gpu(no_gpu):
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tio.BatchPrefetcher([np.zeros((1, 2, 2, 3), np.uint8)])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tio.image_pipeline([np.zeros((1, 2, 2, 3), np.float32)], (2, 2),
+                           0.1, 128)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tio.import_tflite(ROOT / "assets" / "squeezenet_v11_int8.tflite")
 
 
 def test_builder_model_and_server_raise_without_gpu(no_gpu):
@@ -198,7 +212,8 @@ def test_four_kernels_with_no_library_calls():
                      "u8clamp.cu", "u8lut32norm.cu", "u8maxpool.cu",
                      "u8rmax.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == \
-        ["imma_tile.cuh", "pool_tile.cuh", "requant.cuh", "u8rows.cuh"]
+        ["device_guard.cuh", "imma_tile.cuh", "pool_tile.cuh",
+         "requant.cuh", "u8rows.cuh"]
     for p in _build.CSRC.iterdir():
         text = p.read_text()
         for lib in ("cublas", "cudnn", "cutlass", "_int_mm"):
@@ -206,7 +221,7 @@ def test_four_kernels_with_no_library_calls():
         includes = set(re.findall(r"#include [<\"]([^>\"]+)", text))
         assert includes <= {"cuda_runtime.h", "cstdint", "requant.cuh",
                             "imma_tile.cuh", "u8rows.cuh",
-                            "pool_tile.cuh"}, \
+                            "pool_tile.cuh", "device_guard.cuh"}, \
             f"{p.name} includes {includes}"
     assert set(tkernels.KERNELS) == {n[:-3] for n in names}
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
@@ -230,6 +245,40 @@ def c_entry_points():
                 types.append(_CTYPE[typ])
             found[name] = types
     return found
+
+
+def c_entry_bodies():
+    """{name: body} of every extern "C" int qnn_* entry in csrc/*.cu."""
+    bodies = {}
+    for src in _build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (qnn_\w+)\([^)]*\)\s*\{',
+                             text):
+            depth, i = 1, m.end()
+            while depth:
+                depth += {"{": 1, "}": -1}.get(text[i], 0)
+                i += 1
+            bodies[m.group(1)] = text[m.end():i - 1]
+    return bodies
+
+
+def test_c_entries_restore_the_callers_device():
+    """No entry calls cudaSetDevice itself: each opens with a
+    qnn::DeviceGuard (csrc/device_guard.cuh), whose destructor restores the
+    caller's device on every return path, and returns its error first."""
+    bodies = c_entry_bodies()
+    assert set(bodies) == set(_build.SIGNATURES)
+    for name, body in bodies.items():
+        assert "cudaSetDevice" not in body, name
+        lines = [ln.strip() for ln in body.strip().splitlines()]
+        assert lines[0] == "const qnn::DeviceGuard guard(device);", name
+        assert lines[1] == "if (guard.error() != cudaSuccess) {", name
+        assert body.count("DeviceGuard") == 1, name
+    guard = (_build.CSRC / "device_guard.cuh").read_text()
+    assert guard.count("cudaSetDevice(") == 2
+    assert "cudaGetDevice(&saved_)" in guard
+    assert "~DeviceGuard() {\n    if (switched_) cudaSetDevice(saved_);" \
+        in guard
 
 
 def test_ctypes_signatures_match_the_c_entry_points():
