@@ -70,7 +70,10 @@ and the graph runtime.  Phases, each of which raises on any failure:
      or other copy);
   5. serve single-sample requests through qnnpack_tpu_torch.serving
      .InferenceServer (16 MobileNetV2, 8 ResNet-18, 8 ShuffleNet, 8 BERT);
-     every answer must equal its row of a direct batch forward;
+     every answer must equal its row of a direct batch forward; the server
+     runs each bucket as a CUDA graph captured at first use, so the
+     launches are 2 x the forward's per bucket captured (warm-up and
+     capture) and none for a replay;
   6. the lifecycle operators (Add, Clamp, Sigmoid, LeakyReLU, SoftArgMax,
      ChannelShuffle; Convolution2D at each kernel type - 1x1 gemm,
      depthwise, dense 3x3 with dilation 2, grouped, the stem class at kzp
@@ -78,10 +81,15 @@ and the graph runtime.  Phases, each of which raises on any failure:
      FullyConnected at use_pallas=False and at odd K and N; MaxPooling2D,
      AveragePooling2D and GlobalAveragePooling with and without a range,
      17x17 average windows, global widths 49, 258 and 1,000), created on the
-     card: each output must equal the same operator's CPU run, each
-     operator must launch its kernel once, and one run of all of them must
-     launch exactly OPS_LAUNCHES; u8clamp is timed on a 128x56x56x96
-     tensor beside torch.clamp;
+     card, each lowered at its shape (Operator.lower captures, the run
+     replays; unlowered, an operator runs eagerly, and Clamp at another
+     shape must launch once): each output must equal its CPU run, each
+     capture must launch its kernel once, all captures together exactly
+     OPS_LAUNCHES (2 x with the warm-ups; the kernels line counts the
+     captures', one run), and a second run replays with no launch and the
+     same bytes; ten operators are timed as a graph (copy in, replay,
+     clone) and eagerly, on the device and as a caller sees it; u8clamp is
+     timed on a 128x56x56x96 tensor beside torch.clamp;
   7. the imported TFLite models (per-layer zero points, add rescales and
      per-channel scales): each imported with device="cuda" and "cpu"; 4
      synth_images (seed 17) quantized as ACCURACY.json's flow does
@@ -117,14 +125,29 @@ and the graph runtime.  Phases, each of which raises on any failure:
      MobileNetV2 stem's old route (im2col + q8gemm) is timed beside q8stem
      at its shape, and the data movement outside the kernels (the channel
      shuffles and concats) as a sum per forward.  BERT's q8bmm runs on the
-     forward's own views of the qkv output.
+     forward's own views of the qkv output;
+  9. captured forwards: config.initialize(); for each of the six paths
+     (the four models and the two imports) at batch 1 and 128, the forward
+     through ops.base.jit_forward (one CUDA graph) must equal the eager
+     forward byte for byte on two inputs, and its capture must launch the
+     path's EXPECTED_LAUNCHES / IMPORTED_LAUNCHES; eager and captured
+     forwards are timed in turns, with their rates and busy shares (phase
+     8's kernel times summed over the forward's time); two graphs of four
+     split-K q8gemm launches each, replayed at once on two streams for 40
+     rounds, must equal their eager bytes; utils.timing's
+     dispatch_overhead() and a measure_loop of MobileNetV2's b128
+     classifier q8gemm beside its phase-8 time; InferenceServer.warmup()
+     captures every bucket, and phase 5's requests must then get the same
+     answers with no launch; HealthMonitor.probe_once() on the card.
 
 Prints the {"kernels": [...]} line (launches over one batch-1 forward of
 each path, launches_by_path beside them; times summed over one batch-128
 forward of each of the four entry models; u8clamp's over the lifecycle run
 and the 128x56x56x96 tensor), the nvidia-smi line
-and, last, {"ok": true, "device": {...}}.  Per-shape timings, nvcc's time
-and the ptxas lines go to chiprun_out/chip_smoke.json.
+and, last, {"ok": true, "device": {...}}.  Per-shape timings, nvcc's time,
+the ptxas lines and phase 9's numbers (forward[model]: b1_graph_ms,
+b128_graph_ms, ...; timing) go to chiprun_out/chip_smoke.json.  The
+bounds divide by the card's data-sheet peaks from config.tune_params().
 """
 
 from __future__ import annotations
@@ -138,8 +161,10 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense int8 tensor rate
+# The card's data-sheet peaks, from the port's tuning table
+# (qnnpack_tpu_torch/config.py); main() sets them through card_peaks().
+HBM_BYTES_PER_S = None
+INT8_OPS_PER_S = None
 KERNEL_NAMES = ("q8gemm", "q8dwconv", "q8vadd", "q8gavgpool", "q8conv",
                 "q8stem", "u8maxpool", "q8avgpool", "q8bmm", "u8rmax",
                 "u8lut32norm", "u8clamp")
@@ -215,6 +240,16 @@ SOURCES = {
 
 def log(msg):
     print(msg, flush=True)
+
+
+def card_peaks():
+    """(device-memory bytes/s, dense int8 ops/s) of the card, from
+    config.tune_params(); raises for a card the table has no peaks for."""
+    from qnnpack_tpu_torch import config
+    tp = config.tune_params()
+    if not (tp.hbm_gbps and tp.int8_peak_tops):
+        raise RuntimeError(f"no data-sheet peaks for {tp.generation!r}")
+    return tp.hbm_gbps * 1e9, tp.int8_peak_tops * 1e12
 
 
 def gemm_plan(m, n, k, groups, sms):
@@ -1744,11 +1779,18 @@ def ops_cases(torch, rng):
 
 def check_ops(torch, err):
     """Phase 6: the lifecycle operators created on the card against the same
-    operators on the CPU, byte for byte; the launches of one run of all of
-    them (counts set to 0 just before, read just after; each operator's
-    own launches as the difference across it); and u8clamp timed on a
-    128x56x56x96 tensor beside torch.clamp.  Returns (launch counts, timing
-    rows)."""
+    operators on the CPU, byte for byte.  Each is lowered at its input's
+    shape (Operator.lower: an eager warm-up and the capture), so its run
+    replays the graph; at a shape it was not lowered at, it runs eagerly
+    (Clamp on half the rows).  The launches of all of them
+    (counts set to 0 just before, read just after) must be 2 x OPS_LAUNCHES
+    (warm-up and capture; a replay launches nothing), and each capture's
+    own launches that operator's kernel once; a second run replays every
+    graph with no launch and the same bytes.  Ten of them are timed as a
+    graph and eagerly (time_ops_graph), and u8clamp on a 128x56x56x96
+    tensor beside torch.clamp.  Returns (the captures' launches, one run
+    of the operators: OPS_LAUNCHES; u8clamp's timing row; the graph and
+    eager rows)."""
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch import ops
 
@@ -1760,15 +1802,38 @@ def check_ops(torch, err):
     K.reset_launch_counts()
     outputs, own = [], []
     for _, op, xs in on_card:
-        before = K.launch_counts()
+        own.append({k: v for k, v in op.lower(*xs).launches.items() if v})
         outputs.append(op(*xs))
-        own.append({k: v - before[k] for k, v in K.launch_counts().items()
-                    if v != before[k]})
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    log(f"    one run of the {len(cases)} operators: {counts}")
-    if counts != OPS_LAUNCHES:
-        raise AssertionError(f"operator launches {counts} != {OPS_LAUNCHES}")
+    log(f"    one run of the {len(cases)} operators (warm-up + capture): "
+        f"{counts}")
+    if counts != {k: 2 * v for k, v in OPS_LAUNCHES.items()}:
+        raise AssertionError(f"operator launches {counts} != 2 x "
+                             f"{OPS_LAUNCHES}")
+    captured = {k: sum(m.get(k, 0) for m in own) for k in OPS_LAUNCHES}
+    if captured != OPS_LAUNCHES:
+        raise AssertionError(f"captured launches {captured} != "
+                             f"{OPS_LAUNCHES}")
+    K.reset_launch_counts()
+    again = [op(*xs) for _, op, xs in on_card]
+    torch.cuda.synchronize()
+    if set(K.launch_counts().values()) != {0}:
+        raise AssertionError(f"replays launched {K.launch_counts()}")
+    for (name, _, _, _), first, second in zip(cases, outputs, again):
+        if not torch.equal(first, second):
+            raise AssertionError(f"ops.{name}: second replay != first")
+    log("    a second run replays every graph: no launch, equal bytes")
+    clamp, x = on_card[1][1], on_card[1][2][0]
+    K.reset_launch_counts()
+    half = clamp(x[:64])
+    torch.cuda.synchronize()
+    if K.launch_counts() != _counts(u8clamp=1) or \
+            not torch.equal(half, outputs[1][:64]):
+        raise AssertionError(f"Clamp at a shape not lowered: launches "
+                             f"{K.launch_counts()}, or bytes differ")
+    log("    Clamp at a shape it was not lowered at: one eager u8clamp "
+        "launch, the graph's bytes")
     for (name, kw, xs, launched), (_, op, _), got, mine in zip(
             cases, on_card, outputs, own):
         label = f"ops.{name} {tuple(xs[0].shape)}"
@@ -1788,8 +1853,8 @@ def check_ops(torch, err):
         else:
             log(f"  {'(torch)':11s} {label:44s} equal")
 
-    clamp = on_card[1][1]
-    x = on_card[1][2][0]
+    graph_rows = time_ops_graph(torch, cases, on_card, own)
+
     n = x.numel()
     lo, hi = clamp.qparams.output_min, clamp.qparams.output_max
     row = dict(kernel="u8clamp", label=f"ops.Clamp {tuple(x.shape)}",
@@ -1803,23 +1868,73 @@ def check_ops(torch, err):
         f"{row['plain_ms']:.4f} ms, torch.clamp {row['library_ms']:.4f} ms")
     for _, op, _ in on_card:
         op.delete()
-    return counts, [row]
+    return captured, [row], graph_rows
 
 
-def serve_and_check(torch, name, fn, params, samples, expected):
+# Phase 6's operators timed as a graph and eagerly (indices into ops_cases):
+# Add, Clamp, Sigmoid (a PyTorch table lookup), SoftArgMax (two launches),
+# ChannelShuffle (PyTorch copies), the 1x1 gemm and dense dilated 3x3
+# convs (q31), the 1000 x 1280 FC, the 16x112x112x64 max pool and the
+# 128x49x1280 global average pool.
+OPS_TIMED = (0, 1, 2, 4, 5, 6, 16, 25, 27, 31)
+
+
+def time_ops_graph(torch, cases, on_card, own):
+    """What a CUDA graph does to one operator's run: the operator's graph
+    runner (Operator.lower: a copy into the graph's input buffer, the
+    replay, a clone of its output) against the same run made eagerly
+    (op._forward), each timed on the device (queued: launches back to
+    back) and as a caller sees it (host costs included).  Returns the
+    rows."""
+    rows = []
+    log("    operator runs, graph (copy in, replay, clone) vs eager; device "
+        "ms (queued) and caller ms (host included):")
+    for i in OPS_TIMED:
+        name, kw, xs, _ = cases[i]
+        op, dxs = on_card[i][1], on_card[i][2]
+        runner = op.lower(*dxs)
+        label = f"ops.{name} {tuple(dxs[0].shape)}"
+        if name == "Convolution2D":
+            label += f" {op.kernel_type}"
+        row = dict(label=label, launches=sum(own[i].values()), bytes=sum(
+            x.numel() for x in dxs) + op._forward(*dxs).numel())
+        for mode, fn in (("graph", lambda: runner(*dxs)),
+                         ("eager", lambda: op._forward(*dxs))):
+            row[f"{mode}_ms"] = time_ms(fn, torch)
+            row[f"{mode}_call_ms"] = time_ms(fn, torch, queued=False)
+        rows.append(row)
+        log(f"      {label:40s} {row['launches']} launch(es): graph "
+            f"{row['graph_ms']:.4f} / {row['graph_call_ms']:.4f} ms, eager "
+            f"{row['eager_ms']:.4f} / {row['eager_call_ms']:.4f} ms")
+    return rows
+
+
+def serve_and_check(torch, name, fn, params, samples, expected,
+                    warm=False):
     """Serve `samples` one request each through InferenceServer; every
-    answer must equal its row of one direct batch forward, and the launches
-    must be `expected` per batch.  Returns (batches, p50 latency ms)."""
+    answer must equal its row of one direct batch forward.  The server runs
+    each bucket as a CUDA graph: a bucket's first step captures it (an
+    eager warm-up and the capture, each launching `expected`) and later
+    steps replay it (no launch).  With `warm`, InferenceServer.warmup()
+    captures every bucket first, and the requests then launch nothing.
+    Returns (answers, batches, p50 latency ms)."""
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.serving import InferenceServer
     with torch.inference_mode():
         direct = fn(params, torch.from_numpy(samples).cuda()).cpu().numpy()
-    K.reset_launch_counts()
-    server = InferenceServer(lambda xb: fn(params, xb), samples.shape[1:],
+    server = InferenceServer(fn, samples.shape[1:], params=params,
                              max_batch=8)
+    if warm:
+        server.warmup()
+        if server.captured != [1, 2, 4, 8]:
+            raise AssertionError(f"{name}: warmup captured buckets "
+                                 f"{server.captured}")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
     with server:
         futures = [server.submit(x, block=True) for x in samples]
         answers = [f.result(timeout=300) for f in futures]
+        captured = len(server.captured)
     torch.cuda.synchronize()
     served = K.launch_counts()
     for i, ans in enumerate(answers):
@@ -1827,14 +1942,17 @@ def serve_and_check(torch, name, fn, params, samples, expected):
             raise AssertionError(f"{name}: served answer {i} != batch "
                                  "forward row")
     batches = server.stats.batches
-    want = {k: v * batches for k, v in expected.items()}
+    new = 0 if warm else captured
+    want = {k: 2 * v * new for k, v in expected.items()}
     if served != want:
         raise AssertionError(f"{name}: served launches {served} for "
-                             f"{batches} batches")
+                             f"{batches} batches, {new} buckets captured")
     latency = server.stats.latency_percentile(50)
     log(f"    {len(samples)} answers equal the batch forward; {batches} "
-        f"batches, launches {served}, p50 latency {latency:.2f} ms")
-    return batches, latency
+        f"batches, {captured} bucket graphs"
+        + (" captured by warmup()" if warm else " captured on first use")
+        + f", launches {served}, p50 latency {latency:.2f} ms")
+    return answers, batches, latency
 
 
 def check_imported(torch):
@@ -1911,7 +2029,7 @@ def check_imported(torch):
             log(f"[7] {name} InferenceServer: {IMPORTED_SERVED[name]} "
                 "single-sample requests")
             samples = to_u8(synth_images(IMPORTED_SERVED[name], seed=18))
-            served[name], latency[name] = serve_and_check(
+            _, served[name], latency[name] = serve_and_check(
                 torch, name, fn, params, samples, IMPORTED_LAUNCHES[name])
         del params_cpu
 
@@ -1932,16 +2050,218 @@ def check_imported(torch):
     return models, launches, served, latency
 
 
+# ----------------------------------------- phase 9: captured forwards
+def check_captured(torch, models, per_shape, forward, rng):
+    """Each path's forward as CUDA graphs (ops.base.jit_forward) at batch 1
+    and 128: the captured forward must equal the eager one byte for byte
+    on two inputs (the second call copies new bytes into the graph's
+    input buffer; the first call's output, a clone, must survive it), and
+    its capture must launch the path's EXPECTED_LAUNCHES.  Both forwards
+    are timed as a caller sees them (host launch costs included, as phase
+    8 times forwards), in turns: eager, graph, graph, eager.  The busy
+    share is phase 8's per-launch device times of that forward, summed,
+    over the forward's time.  Each path's graphs are released before the
+    next path's."""
+    from qnnpack_tpu_torch.entry import input_shape
+    from qnnpack_tpu_torch.ops.base import jit_forward
+
+    expected = dict(EXPECTED_LAUNCHES, **IMPORTED_LAUNCHES)
+    for model, (fn, params, _) in models.items():
+        unit = "seq" if model == "bert_base_s128" else "img"
+        for batch, iters in ((1, 20), (128, 3)):
+            jf = jit_forward(fn)
+            xs = [torch.from_numpy(rng.integers(
+                0, 256, (batch,) + input_shape(model),
+                dtype=np.int64).astype(np.uint8)).cuda() for _ in range(2)]
+            with torch.inference_mode():
+                want = [fn(params, x) for x in xs]
+                runner = jf.lower(params, xs[0])
+                got = [jf(params, x) for x in xs]
+                torch.cuda.synchronize()
+                for i, (g, w) in enumerate(zip(got, want)):
+                    if not torch.equal(g, w):
+                        diff = (g.int() - w.int()).abs()
+                        raise AssertionError(
+                            f"{model} b{batch} input {i}: captured forward "
+                            f"differs in {int((diff > 0).sum())} values, "
+                            f"max |err| {int(diff.max())}")
+                if torch.equal(want[0], want[1]):
+                    raise AssertionError(f"{model} b{batch}: two inputs, "
+                                         "one output")
+                if runner.launches != expected[model]:
+                    raise AssertionError(
+                        f"{model} b{batch}: capture launched "
+                        f"{runner.launches}, not {expected[model]}")
+                if len(jf.graphs) != 1:
+                    raise AssertionError(f"{model} b{batch}: "
+                                         f"{len(jf.graphs)} graphs")
+                e1 = forward_ips(torch, fn, params, xs[0], iters)
+                g1 = forward_ips(torch, jf, params, xs[0], iters)
+                g2 = forward_ips(torch, jf, params, xs[0], iters)
+                e2 = forward_ips(torch, fn, params, xs[0], iters)
+            eager_ms = (e1[1] + e2[1]) / 2
+            graph_ms = (g1[1] + g2[1]) / 2
+            kernels_ms = sum(r["ms"] for r in per_shape[f"{model} b{batch}"])
+            row = forward[model]
+            row.update({
+                f"b{batch}_eager_ms": eager_ms,
+                f"b{batch}_eager_per_s": batch / (eager_ms * 1e-3),
+                f"b{batch}_graph_ms": graph_ms,
+                f"b{batch}_graph_per_s": batch / (graph_ms * 1e-3),
+                f"b{batch}_kernels_ms": kernels_ms,
+                f"b{batch}_eager_busy": kernels_ms / eager_ms,
+                f"b{batch}_graph_busy": kernels_ms / graph_ms})
+            log(f"    {model} b{batch}: captured == eager on two inputs, "
+                f"capture launches as EXPECTED; eager {eager_ms:.3f} ms "
+                f"({batch / (eager_ms * 1e-3):.1f} {unit}/s, busy "
+                f"{kernels_ms / eager_ms:.2f}), graph {graph_ms:.3f} ms "
+                f"({batch / (graph_ms * 1e-3):.1f} {unit}/s, busy "
+                f"{kernels_ms / graph_ms:.2f}), kernels {kernels_ms:.3f} ms")
+            del runner, got, want, xs
+            jf.clear()
+            torch.cuda.empty_cache()
+
+
+def check_two_graphs(torch, err, u8, sms, rounds=40):
+    """Two CUDA graphs, each a chain of four split-K q8gemm launches
+    (BERT's out projection at batch 1, 128x768->768) under weights of its
+    own, replayed at once on two streams for `rounds` rounds.  Each graph
+    counts its splits on counters of its own (ops.base.capture), so every
+    output equals its eager bytes (the counterpart of check_two_streams
+    for graphs)."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.nn.packing import pack_gemm_weights
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+    from qnnpack_tpu_torch.ops.base import jit_forward
+
+    m, k, n = 128, 768, 768
+    plan = gemm_plan(m, n, k, 1, sms)
+    if plan[1] < 2:
+        raise AssertionError(f"{m}x{k}->{n} not split: {plan}")
+    rp = make_requant_params("fp32", 0.0074, 117)
+    cuda = torch.device("cuda")
+
+    def chain(p):
+        def run(a):
+            for _ in range(4):
+                a = K.q8gemm_cuda(a, p, rp)
+            return a
+        return run
+
+    fns = [chain(pack_gemm_weights(
+        u8(n, k), np.arange(n, dtype=np.int32) * (7 + i), 128, 128,
+        device=cuda)) for i in range(2)]
+    xs = [torch.from_numpy(u8(m, k)).to(cuda) for _ in fns]
+    wants = [f(x) for f, x in zip(fns, xs)]
+    jfs = [jit_forward(f) for f in fns]
+    runners = [jf.lower(x) for jf, x in zip(jfs, xs)]
+    if runners[0].counters.data_ptr() == runners[1].counters.data_ptr():
+        raise AssertionError("two graphs share their split-K counters")
+    for r in runners:
+        if r.launches["q8gemm"] != 4:
+            raise AssertionError(f"capture launched {r.launches}")
+    streams = [torch.cuda.Stream() for _ in fns]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(rounds):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(jfs[i](xs[i]))
+    torch.cuda.synchronize()
+    for i, want in enumerate(wants):
+        for got in outs[i]:
+            compare(torch, err, "q8gemm", f"graph {i}", got, want,
+                    quiet=True)
+    label = f"two graphs x {rounds} 4 x out b1 {plan_tag(plan)}"
+    log(f"  {'q8gemm':10s} {label:44s} equal")
+    for jf in jfs:
+        jf.clear()
+
+
+def check_measure_loop(torch, models, per_shape, rng):
+    """dispatch_overhead() and one measure_loop of MobileNetV2's b128
+    classifier q8gemm launch (captured loops of n and 2n calls, each
+    call's output summed into an int32, and the launches alone), beside
+    phase 8's CUDA-event time of the same launch; then MobileNetV2's b128
+    q8gavgpool and the launch floor (a one-element zero_()) as loops of
+    launches in a graph."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.nn.packing import PackedGemmWeights
+    from qnnpack_tpu_torch.utils.timing import dispatch_overhead, measure_loop
+
+    med, spread = dispatch_overhead()
+    log(f"    dispatch_overhead(): median {med * 1e3:.4f} ms, p10-p90 spread "
+        f"{spread * 1e3:.4f} ms (15 synchronized +1 launches on 8x128 "
+        "uint8)")
+    fn, params, _ = models["mobilenet_v2"]
+    xb = torch.from_numpy(rng.integers(0, 256, (128, 224, 224, 3),
+                                       dtype=np.int64).astype(np.uint8)).cuda()
+    last = None
+    with torch.inference_mode():
+        for _, name, layer, p, a, _ in traced_inputs(
+                "mobilenet_v2", params, fn.spec, xb):
+            if isinstance(p, PackedGemmWeights):
+                last = (name, layer, p, a.reshape(-1, a.shape[-1]))
+    name, layer, p, a2 = last
+    label = f"{name} {a2.shape[0]}x{a2.shape[1]}->{p.n}"
+    ms8 = next(r["ms"] for r in per_shape["mobilenet_v2 b128"]
+               if r["label"] == label)
+    meas = measure_loop(lambda v: K.q8gemm_cuda(v, p, layer.rparams), a2,
+                        min_seconds=0.05, est_seconds=ms8 * 1e-3)
+    # The same launches alone: chained through a tuple that carries the
+    # input along, so no sum runs between them.
+    alone = measure_loop(
+        lambda t: (t[0], K.q8gemm_cuda(t[0], p, layer.rparams)),
+        (a2, K.q8gemm_cuda(a2, p, layer.rparams)), chain=True,
+        min_seconds=0.05, est_seconds=ms8 * 1e-3)
+    log(f"    measure_loop q8gemm {label}: {meas.seconds * 1e3:.5f} ms "
+        f"(n = {meas.n_iters}, dispersion {meas.dispersion:.3f}; each call "
+        f"also sums its output), {alone.seconds * 1e3:.5f} ms alone; "
+        f"phase 8 CUDA events {ms8:.5f} ms")
+    # q8gavgpool launches alone in a graph, beside one-element zero_()
+    # launches: what a launch costs inside a graph.
+    gap = next(r for r in per_shape["mobilenet_v2 b128"]
+               if r["kernel"] == "q8gavgpool")
+    qp = next(layer for tag, _, layer in fn.spec.layers if tag == "gap")
+    a3 = torch.from_numpy(rng.integers(0, 256, (128, 49, 1280),
+                                       dtype=np.int64).astype(np.uint8)).cuda()
+    y3 = K.q8gavgpool_cuda(a3, qp)
+    gav = measure_loop(lambda t: (t[0], K.q8gavgpool_cuda(t[0], qp)),
+                       (a3, y3), chain=True, min_seconds=0.05,
+                       est_seconds=gap["ms"] * 1e-3)
+    one = torch.zeros(1, dtype=torch.uint8, device="cuda")
+    flo = measure_loop(lambda v: v.zero_(), one, chain=True,
+                       min_seconds=0.05, est_seconds=2e-6)
+    log(f"    measure_loop q8gavgpool {gap['label']}: "
+        f"{gav.seconds * 1e3:.5f} ms in a graph (phase 8 CUDA events "
+        f"{gap['ms']:.5f}); one-element zero_() in a graph "
+        f"{flo.seconds * 1e3:.5f} ms")
+    return dict(dispatch_overhead_ms=med * 1e3,
+                dispatch_spread_ms=spread * 1e3, measure_loop_label=label,
+                measure_loop_ms=meas.seconds * 1e3,
+                measure_loop_n=meas.n_iters,
+                measure_loop_dispersion=meas.dispersion,
+                measure_loop_alone_ms=alone.seconds * 1e3, phase8_ms=ms8, gavgpool_label=gap["label"],
+                gavgpool_graph_ms=gav.seconds * 1e3,
+                gavgpool_phase8_ms=gap["ms"],
+                zero_graph_ms=flo.seconds * 1e3)
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
+    global HBM_BYTES_PER_S, INT8_OPS_PER_S
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
     from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.config import initialize
     from qnnpack_tpu_torch.entry import entry, input_shape
     from qnnpack_tpu_torch.kernels import _build
+    from qnnpack_tpu_torch.serving import HealthMonitor
+
+    HBM_BYTES_PER_S, INT8_OPS_PER_S = card_peaks()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1950,7 +2270,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[1] card: {smi}")
     log(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}, {kind}")
+        f"python {sys.version.split()[0]}, {kind}; data-sheet peaks "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {INT8_OPS_PER_S / 1e12:.0f} "
+        "int8 TOP/s (config.tune_params)")
     t0 = time.perf_counter()
     _build.load_library()
     log(f"    kernels built in {time.perf_counter() - t0:.1f} s "
@@ -1995,17 +2317,20 @@ def main() -> int:
     rng = np.random.default_rng(7)
     served_batches = {}
     latency = {}
+    served = {}
     for model, count in SERVED.items():
         fn, params, _ = models[model]
         log(f"[5] {model} InferenceServer: {count} single-sample requests")
         samples = rng.integers(0, 256, (count,) + input_shape(model),
                                dtype=np.int64).astype(np.uint8)
-        served_batches[model], latency[model] = serve_and_check(
+        answers, served_batches[model], latency[model] = serve_and_check(
             torch, model, fn, params, samples, EXPECTED_LAUNCHES[model])
+        served[model] = (samples, answers)
 
     log("[6] lifecycle operators on the card against their CPU runs")
     per_shape = {}
-    launches["ops"], per_shape["ops b128"] = check_ops(torch, max_err)
+    launches["ops"], per_shape["ops b128"], ops_graph = check_ops(
+        torch, max_err)
 
     imported, imported_launches, imported_served, imported_latency = \
         check_imported(torch)
@@ -2074,6 +2399,28 @@ def main() -> int:
             del xb
             torch.cuda.empty_cache()
 
+    log("[9] captured forwards (CUDA graphs, ops.base.jit_forward)")
+    log(f"    initialize(): {initialize()}")
+    check_captured(torch, models, per_shape, forward, rng)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check_two_graphs(torch, max_err, lambda *shape: rng.integers(
+        0, 256, shape, dtype=np.int64).astype(np.uint8), sms)
+    timing = check_measure_loop(torch, models, per_shape, rng)
+    for model, (samples, answers) in served.items():
+        fn, params, _ = models[model]
+        log(f"[9] {model} InferenceServer.warmup(), then phase 5's "
+            f"{len(samples)} requests")
+        again, _, _ = serve_and_check(torch, model, fn, params, samples,
+                                      EXPECTED_LAUNCHES[model], warm=True)
+        if any(not np.array_equal(a, b) for a, b in zip(again, answers)):
+            raise AssertionError(f"{model}: warm server's answers != "
+                                 "phase 5's")
+        log("    the same answers as phase 5")
+    if HealthMonitor().probe_once() is not True:
+        raise AssertionError("HealthMonitor probe on the card failed")
+    log(f"[9] HealthMonitor.probe_once() on {torch.cuda.device_count()} "
+        "card(s): True")
+
     b128 = [r for key, rows in per_shape.items() if key.endswith("b128")
             and key.split()[0] not in IMPORTED for r in rows]
     kernels_line = []
@@ -2093,7 +2440,8 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         nvcc_seconds=_build.build_seconds, ptxas=ptxas,
-        launch_floor_ms=floor_ms, forward=forward,
+        launch_floor_ms=floor_ms, forward=forward, timing=timing,
+        ops_graph=ops_graph,
         launches_per_forward=launches,
         served_batches=served_batches, served_p50_ms=latency,
         kernels=kernels_line, per_shape=per_shape), indent=1))

@@ -8,7 +8,11 @@ is MobileNetV2 1.0_224; model="resnet18" is the zoo's ResNet-18 and
 model="shufflenet_v1_g3" its ShuffleNet v1 with 3 groups, both through the
 graph runtime at 224; model="bert_base_s128" is the int8 BERT-base encoder
 (12 layers, hidden 768, 12 heads, FFN 3072, sequence 128).  Each is built
-as bench_models.py builds it."""
+as bench_models.py builds it.
+
+The returned fn runs eagerly, as the JAX entry returns a function for the
+caller to jit: `ops.base.jit_forward(fn)` captures it, one CUDA graph per
+input shape (and per set of params), and replays it."""
 
 from __future__ import annotations
 

@@ -42,4 +42,8 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
+    """Launches of each kernel so far.  The counts run in Python, in the
+    wrapper: a launch recorded by a CUDA-graph capture counts once, at the
+    capture, and a replay of the graph counts nothing (ops.base.capture
+    keeps a graph's own counts in Capture.launches)."""
     return {name: fn.launches for name, fn in KERNELS.items()}

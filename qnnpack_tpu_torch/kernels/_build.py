@@ -155,6 +155,9 @@ def stream_of(t) -> int:
 
 @functools.lru_cache(maxsize=256)
 def _channel_scales(scales: tuple, device):
+    """Per-channel scales on `device`, cached; a miss copies them from
+    pageable host memory.  Never read during a CUDA-graph capture (see
+    requant_args)."""
     import torch
     return torch.tensor(scales, dtype=torch.float32, device=device)
 
@@ -163,7 +166,11 @@ def requant_args(rparams, channels: int, device):
     """(scales tensor or None, [scheme, multiplier, shift, zero_point, qmin,
     qmax, scale]) for a requant params record - the qnn::Requant fields of
     csrc/requant.cuh.  Per-channel scales come from the params'
-    device_scales where it lies on `device`, with no copy."""
+    device_scales where it lies on `device`, with no copy; else from
+    _channel_scales.  During a capture only device_scales will do: a miss
+    would copy from pageable memory, which a capture refuses, and a hit
+    would leave the graph holding the address of a cached tensor it does
+    not own, which the cache may free and reuse while the graph lives."""
     import torch
 
     from ..quant import params as qp
@@ -187,6 +194,13 @@ def requant_args(rparams, channels: int, device):
                              f"{channels} output channels")
         scales = rparams.device_scales
         if scales is None or scales.device != torch.device(device):
+            if torch.device(device).type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "per-channel scales not on the launch's device "
+                    f"({device}) during a CUDA graph capture: give the "
+                    "params device_scales there (PerChannelFP32Params."
+                    "device_scales)")
             scales = _channel_scales(rparams.scales, device)
         return (scales, [4, 0, 0, rparams.zero_point, rparams.qmin,
                          rparams.qmax, 0.0])

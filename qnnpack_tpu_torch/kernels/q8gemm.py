@@ -13,7 +13,9 @@ q8conv alike (csrc/imma_tile.cuh).
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import torch
 
@@ -75,21 +77,60 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+# Counters an eager launch takes, per (device, stream handle); 4096 covers
+# every split launch but one whose K alone forces the split.
+COUNTERS = 4096
 _counters = {}
+_graph = threading.local()
+
+
+def new_counters(device) -> torch.Tensor:
+    """A zeroed set of split-K counters on `device`."""
+    return torch.zeros(COUNTERS, dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def graph_counters(counters: torch.Tensor):
+    """Within the block, every split-K launch of this thread counts on
+    `counters` (made with new_counters before a CUDA-graph capture).  A
+    capture runs on one capture stream, so counters keyed by stream would
+    be shared by every graph captured there, and two of them replayed at
+    once on two streams would count each other's tiles; a graph that holds
+    counters of its own (ops/base.py:capture) cannot."""
+    prev = getattr(_graph, "counters", None)
+    _graph.counters = counters
+    try:
+        yield counters
+    finally:
+        _graph.counters = prev
 
 
 def _split_counters(device, stream: int, blocks: int) -> torch.Tensor:
-    """The split-K counters of launches on `stream` (a CUDA stream handle)
+    """The split-K counters of a launch on `stream` (a CUDA stream handle)
     of `device`: one int32 per output tile, all 0 between launches (the
     kernel's last block of each tile sets its counter back to 0).  Launches
     on one stream run in order, so only launches on another stream could
     be in flight at once, and those count on counters of their own.  The
     wrappers launch on the current stream, so the zeroing below is queued
-    ahead of the first launch that reads them."""
+    ahead of the first launch that reads them.  Under graph_counters the
+    launch takes the graph's counters; a split launch captured without
+    them raises."""
+    own = getattr(_graph, "counters", None)
+    if own is not None:
+        if own.device != torch.device(device) or own.numel() < blocks:
+            raise RuntimeError(
+                f"graph counters {own.numel()} on {own.device} for a "
+                f"split-K launch of {blocks} tiles on {device}")
+        return own
     key = (torch.device(device), stream)
+    if key[0].type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "a split-K launch captured without counters of its graph's own "
+            "would share them with every graph captured on this stream: "
+            "capture through ops.base.capture or jit_forward")
     counters = _counters.get(key)
     if counters is None or counters.numel() < blocks:
-        counters = torch.zeros(max(blocks, 4096), dtype=torch.int32,
+        counters = torch.zeros(max(blocks, COUNTERS), dtype=torch.int32,
                                device=device)
         _counters[key] = counters
     return counters
@@ -102,7 +143,8 @@ def plan_launch(device, stream: int, m: int, n: int, steps: int,
     ptr, counters ptr]), the arguments that the C entries of q8gemm and
     q8conv take.  The workspace holds each split's int32 partial tile; once
     the caller drops it, the caching allocator hands it only to later work
-    on the same stream."""
+    on the same stream; under a CUDA-graph capture it comes from the
+    graph's private pool, which keeps it for the graph's replays."""
     tile, splits, per = tile_plan(m, n, steps, groups, _sm_count(device),
                                   deep)
     if splits == 1:

@@ -1,6 +1,7 @@
 """Leveled logging (clog analogue, QNNPACK src/qnnpack/log.h:9-29).
 
-The level comes from the QNNPACK_TPU_TORCH_LOG_LEVEL environment variable."""
+The level comes from the QNNPACK_TPU_TORCH_LOG_LEVEL environment variable
+or `set_log_level`."""
 
 from __future__ import annotations
 
@@ -22,4 +23,12 @@ if not logger.handlers:
         os.environ.get("QNNPACK_TPU_TORCH_LOG_LEVEL", "warning").lower(),
         logging.WARNING))
 
+
+def set_log_level(level: str):
+    logger.setLevel(_LEVELS[level.lower()])
+
+
+log_debug = logger.debug
+log_info = logger.info
+log_warning = logger.warning
 log_error = logger.error

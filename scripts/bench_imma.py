@@ -73,9 +73,8 @@ def main() -> int:
         print("bench_imma: no CUDA GPU available", file=sys.stderr)
         return 2
     import chip_smoke
-    from chip_smoke import (HBM_BYTES_PER_S, INT8_OPS_PER_S, conv2d_yardstick,
-                            conv_plan, gemm_plan, int_mm_yardstick, plan_tag,
-                            time_ms)
+    from chip_smoke import (card_peaks, conv2d_yardstick, conv_plan,
+                            gemm_plan, int_mm_yardstick, plan_tag, time_ms)
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.kernels import _build
     from qnnpack_tpu_torch.kernels import q8gemm as gemm_mod
@@ -83,6 +82,7 @@ def main() -> int:
     from qnnpack_tpu_torch.nn.packing import pack_gemm_weights
     from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
 
+    HBM_BYTES_PER_S, INT8_OPS_PER_S = card_peaks()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

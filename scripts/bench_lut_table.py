@@ -102,14 +102,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_lut_table: no CUDA GPU available", file=sys.stderr)
         return 2
-    from chip_smoke import HBM_BYTES_PER_S, time_ms
+    from chip_smoke import card_peaks, time_ms
     from qnnpack_tpu_torch.kernels import _build
+
     from qnnpack_tpu_torch.kernels.vpu_ops import (row_instance,
                                                    u8lut32norm_plain,
                                                    u8rmax_plain)
     from qnnpack_tpu_torch.nn.elementwise import (build_softargmax_lut,
                                                   lut32_tensor)
-
+    HBM_BYTES_PER_S, _ = card_peaks()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout

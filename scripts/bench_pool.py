@@ -290,8 +290,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_pool: no CUDA GPU available", file=sys.stderr)
         return 2
-    from chip_smoke import HBM_BYTES_PER_S, time_ms
+    from chip_smoke import card_peaks, time_ms
     from qnnpack_tpu_torch.kernels import _build
+
     from qnnpack_tpu_torch.kernels.pool import (GAVG_SUMS, WINDOWS,
                                                 gavgpool_instance,
                                                 pool_instance,
@@ -299,7 +300,7 @@ def main() -> int:
                                                 q8gavgpool_plain,
                                                 u8maxpool_plain)
     from qnnpack_tpu_torch.quant.params import compute_avgpool_quant_params
-
+    HBM_BYTES_PER_S, _ = card_peaks()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout

@@ -9,7 +9,10 @@
 - the ctypes bindings agree with the C entry points of kernels/csrc/, and
   the scheme codes with csrc/requant.cuh;
 - chip_smoke.py fails, printing no result, without a GPU or without the
-  rest of the repository.
+  rest of the repository;
+- no module of the forward path (models/, nn/, kernels/) waits for the
+  device or copies to the host (torch.cuda.synchronize, .item(), .cpu(),
+  .tolist(), .numpy()), any of which would break a CUDA-graph capture.
 """
 
 import ast
@@ -62,6 +65,34 @@ def test_port_imports_no_jax(path):
 
 def test_port_files_were_found():
     assert len(PORT_FILES) > 15
+
+
+FORWARD_PATH = sorted(p for d in ("models", "nn", "kernels")
+                      for p in (ROOT / "qnnpack_tpu_torch" / d).rglob("*.py"))
+HOST_SYNCS = {"synchronize", "item", "cpu", "tolist", "numpy"}
+
+
+def host_syncs(source: str):
+    """(line, name) of every call of a HOST_SYNCS method in `source`."""
+    for node in ast.walk(ast.parse(source)):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr in HOST_SYNCS):
+            yield node.lineno, node.func.attr
+
+
+@pytest.mark.parametrize("path", FORWARD_PATH,
+                         ids=[str(p.relative_to(ROOT)) for p in FORWARD_PATH])
+def test_forward_path_never_waits_for_the_device(path):
+    assert list(host_syncs(path.read_text())) == []
+
+
+def test_host_sync_scan_finds_each_call():
+    assert len(FORWARD_PATH) > 15
+    found = list(host_syncs(
+        "import torch\ntorch.cuda.synchronize()\nx.item()\ny = x.cpu()\n"
+        "z = f(x).tolist()\nw = x.numpy()\nx.cpu\n"))
+    assert [name for _, name in found] == ["synchronize", "item", "cpu",
+                                           "tolist", "numpy"]
 
 
 @pytest.fixture
