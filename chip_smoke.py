@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (built for sm_90a: an H100), nvcc and a host C/C++
-compiler; exits non-zero without them.  Seven main paths: four models
+compiler; exits non-zero without them.  Eight main paths: five models
 through qnnpack_tpu_torch.entry (seed 0, fp32 requant) - MobileNetV2
 1.0_224, ResNet-18 and ShuffleNet v1 (groups = 3) through the graph
-runtime at 224, and the int8 BERT-base encoder at sequence 128 - the
+runtime at 224, the ENet-style segmentation net (its three deconvs) at
+256, and the int8 BERT-base encoder at sequence 128 - the
 lifecycle API's operators (qnnpack_tpu_torch.ops), and the two bundled
 int8 TFLite models (assets/mobilenet_v2_int8.tflite, assets/
 squeezenet_v11_int8.tflite) through qnnpack_tpu_torch.io.import_tflite
@@ -52,10 +53,24 @@ and the graph runtime.  Phases, each of which raises on any failure:
      records it in q8gavgpool_cuda.instance) at the three b128 model pools,
      bases 1, 4 and 8 bytes off 16, C = 1 to 1,280, S = 257, 258 and
      4,096, all-255 and all-0 rows and a bias whose sum wraps int32:
-     torch.equal, zero tolerance (the integer math is exact);
+     torch.equal, zero tolerance (the integer math is exact).  Then
+     deconvolution (check_deconvs): ENet's three k == s deconvs (each
+     plan's q8gemm launch against its plain version, then the whole
+     deconv) and nn/conv.py:q8deconv2d at every lowering (k == s with
+     groups 1 and 2, the phases with padding and adjustment, k < s, a
+     depthwise deconv on q8dwconv, stride 1, dilation 2 at stride 2) at
+     zero points (121, 103), card == CPU, each launching what its plan
+     names; the row-sum pair (check_row_sums: q8gemm's producer and
+     consumer instances, y, rs and the consumer's output each equal to
+     their plain versions and to plain q8gemm, kzp != 128 on both stages,
+     each stage split over K and not, BERT's b128 out -> ffn1 chain timed
+     beside plain q8gemm); the float ops (check_float_ops: sgemm, hgemm,
+     sconv2d, sdwconv2d on the card against their CPU run, within
+     tests/test_float_ops.py's tolerances);
   3. for each model, batch 1: the forward on the card must equal the plain
-     CPU forward byte for byte (logits [1, 1000] for the image models,
-     hidden states [1, 128, 768] for BERT, not constant);
+     CPU forward byte for byte (logits [1, 1000] for the classifiers,
+     [1, 256, 256, 12] for ENet, hidden states [1, 128, 768] for BERT,
+     not constant);
   4. for each model, count kernel launches over one forward (counts set to
      0 just before it, read just after):
        MobileNetV2  q8gemm 35, q8stem 1, q8dwconv 17, q8vadd 10, q8gavgpool 1
@@ -63,13 +78,16 @@ and the graph runtime.  Phases, each of which raises on any failure:
                     q8gavgpool 1, q8gemm 1
        ShuffleNet   q8stem 1, u8maxpool 1, q8gemm 2, q8conv 31 (grouped),
                     q8dwconv 16, q8avgpool 3, q8vadd 13, q8gavgpool 1
+       ENet         q8stem 1, q8conv 11, q8gemm 19 (16 1x1 convs and the
+                    3 deconvs), q8vadd 7 (plus 3 depth-to-space copies)
        BERT         q8gemm 48, q8bmm 24, u8rmax 12, u8lut32norm 12,
                     q8vadd 24
      and every other kernel 0; and under torch.profiler one BERT forward
      must launch no CUDA kernel that is not the port's (no head-transpose
      or other copy);
   5. serve single-sample requests through qnnpack_tpu_torch.serving
-     .InferenceServer (16 MobileNetV2, 8 ResNet-18, 8 ShuffleNet, 8 BERT);
+     .InferenceServer (16 MobileNetV2, 8 ResNet-18, 8 ShuffleNet, 8 ENet,
+     8 BERT);
      every answer must equal its row of a direct batch forward; the server
      runs each bucket as a CUDA graph captured at first use, so the
      launches are 2 x the forward's per bucket captured (warm-up and
@@ -80,7 +98,11 @@ and the graph runtime.  Phases, each of which raises on any failure:
      128 and 103 - under every requant scheme and per-channel;
      FullyConnected at use_pallas=False and at odd K and N; MaxPooling2D,
      AveragePooling2D and GlobalAveragePooling with and without a range,
-     17x17 average windows, global widths 49, 258 and 1,000), created on the
+     17x17 average windows, global widths 49, 258 and 1,000;
+     Deconvolution2D at each lowering - k == s, the phases of a 3x3
+     stride-2 deconv with padding and adjustment, a stride-1 3x3 - at
+     zero points (128, 128) and (121, 103) under q31 and fp32, a grouped
+     k == s deconv at kzp 103 and a k < s one), created on the
      card, each lowered at its shape (Operator.lower captures, the run
      replays; unlowered, an operator runs eagerly, and Clamp at another
      shape must launch once): each output must equal its CPU run, each
@@ -88,7 +110,9 @@ and the graph runtime.  Phases, each of which raises on any failure:
      OPS_LAUNCHES (2 x with the warm-ups; the kernels line counts the
      captures', one run), and a second run replays with no launch and the
      same bytes; ten operators are timed as a graph (copy in, replay,
-     clone) and eagerly, on the device and as a caller sees it; u8clamp is
+     clone) and eagerly, on the device and as a caller sees it; each
+     lowering's Deconvolution2D (q31, kzp 103) is timed whole, its kernel
+     launches alone and its copies alone; u8clamp is
      timed on a 128x56x56x96 tensor beside torch.clamp;
   7. the imported TFLite models (per-layer zero points, add rescales and
      per-channel scales): each imported with device="cuda" and "cpu"; 4
@@ -102,7 +126,7 @@ and the graph runtime.  Phases, each of which raises on any failure:
      resizes and quantizes a batch through io.image_pipeline within one
      quantum of its numpy version; 8 single-sample requests to the imported
      MobileNetV2 through InferenceServer each equal their batch-forward
-     row.  Phase 8 times both as it times the four models;
+     row.  Phase 8 times both as it times the five models;
   8. time with CUDA events (warm-up, median of repeats) the launch floor
      (a one-element zero_(), printed beside each q8gavgpool launch), each
      model's
@@ -124,10 +148,11 @@ and the graph runtime.  Phases, each of which raises on any failure:
      q8conv row also holds its plan, TOP/s and share of its bound.  The
      MobileNetV2 stem's old route (im2col + q8gemm) is timed beside q8stem
      at its shape, and the data movement outside the kernels (the channel
-     shuffles and concats) as a sum per forward.  BERT's q8bmm runs on the
-     forward's own views of the qkv output;
-  9. captured forwards: config.initialize(); for each of the six paths
-     (the four models and the two imports) at batch 1 and 128, the forward
+     shuffles and concats, ENet's depth-to-space copies) as a sum per
+     forward.  BERT's q8bmm runs on the forward's own views of the qkv
+     output;
+  9. captured forwards: config.initialize(); for each of the seven paths
+     (the five models and the two imports) at batch 1 and 128, the forward
      through ops.base.jit_forward (one CUDA graph) must equal the eager
      forward byte for byte on two inputs, and its capture must launch the
      path's EXPECTED_LAUNCHES / IMPORTED_LAUNCHES; eager and captured
@@ -142,11 +167,12 @@ and the graph runtime.  Phases, each of which raises on any failure:
 
 Prints the {"kernels": [...]} line (launches over one batch-1 forward of
 each path, launches_by_path beside them; times summed over one batch-128
-forward of each of the four entry models; u8clamp's over the lifecycle run
+forward of each of the five entry models; u8clamp's over the lifecycle run
 and the 128x56x56x96 tensor), the nvidia-smi line
 and, last, {"ok": true, "device": {...}}.  Per-shape timings, nvcc's time,
-the ptxas lines and phase 9's numbers (forward[model]: b1_graph_ms,
-b128_graph_ms, ...; timing) go to chiprun_out/chip_smoke.json.  The
+the ptxas lines, phase 9's numbers (forward[model]: b1_graph_ms,
+b128_graph_ms, ...; timing), the row-sum pair's times (row_sums) and the
+deconv lowerings' (deconv_ops) go to chiprun_out/chip_smoke.json.  The
 bounds divide by the card's data-sheet peaks from config.tune_params().
 """
 
@@ -182,9 +208,14 @@ EXPECTED_LAUNCHES = {
     "shufflenet_v1_g3": _counts(q8gemm=2, q8dwconv=16, q8vadd=13,
                                 q8gavgpool=1, q8conv=31, q8stem=1,
                                 u8maxpool=1, q8avgpool=3),
+    "enet_seg": _counts(q8stem=1, q8conv=11, q8gemm=19, q8vadd=7),
     "bert_base_s128": _counts(q8gemm=48, q8bmm=24, u8rmax=12, u8lut32norm=12,
                               q8vadd=24),
 }
+# ENet's 16 1x1 convs and its three 2x2 stride-2 deconvs (the k == s
+# lowering: one q8gemm launch and a depth-to-space copy each) make its 19
+# q8gemm launches; its 11 other convs (the 2x2 stride-2 downsamples and
+# the 3x3 bodies) run on q8conv, the 3-channel stride-2 stem on q8stem.
 # One batch-1 forward of each imported TFLite model (phase 7): every 1x1
 # stride-1 conv and the FC on q8gemm, the depthwise convs on q8dwconv, the
 # 3x3 convs of SqueezeNet's fire modules on q8conv; its 8 concats are
@@ -201,13 +232,13 @@ IMPORTED_LAUNCHES = {
 }
 IMPORTED_SERVED = {"mobilenet_v2_tflite": 8}
 # One run of phase 6's lifecycle operators (ops_cases).
-OPS_LAUNCHES = _counts(q8gemm=7, q8dwconv=5, q8vadd=1, q8gavgpool=3,
-                       q8conv=7, q8stem=2, u8maxpool=2, q8avgpool=2,
+OPS_LAUNCHES = _counts(q8gemm=11, q8dwconv=5, q8vadd=1, q8gavgpool=3,
+                       q8conv=32, q8stem=2, u8maxpool=2, q8avgpool=2,
                        u8rmax=1, u8lut32norm=1, u8clamp=1)
 SERVED = {"mobilenet_v2": 16, "resnet18": 8, "shufflenet_v1_g3": 8,
-          "bert_base_s128": 8}
+          "enet_seg": 8, "bert_base_s128": 8}
 # Timed rows that are not kernels.
-DATA_MOVEMENT = ("x8zip", "concat")
+DATA_MOVEMENT = ("x8zip", "concat", "depth_to_space")
 SOURCES = {
     "q8gemm": ("qnnpack_tpu_torch/kernels/csrc/q8gemm.cu",
                "qnnpack_tpu/kernels/q8gemm_small.py:134"),
@@ -1242,6 +1273,197 @@ def check_two_streams(torch, err, u8, sms, rounds=40):
     log(f"  {'q8gemm':10s} {label:44s} equal")
 
 
+def check_deconvs(torch, err, rng):
+    """Deconvolution on the card against the CPU, byte for byte: ENet's
+    three k == s deconvs at batch 1 (each plan record's q8gemm launch
+    against its plain version, then the whole deconv), and a deconv at
+    every lowering of nn/conv.py:deconv_lowering (k == s with groups 1 and
+    2; phases with padding and adjustment, k < s, a depthwise deconv on
+    q8dwconv; stride 1, dilation 2, stride 2 with dilation 2) at zero
+    points (121, 103), each launching the kernels its plan names."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.nn.conv import (deconv_lowering, deconv_plan,
+                                           pack_conv_weights, q8deconv2d)
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+    cuda = torch.device("cuda")
+
+    def pair(o, kh, kw, icpg, groups, izp, kzp):
+        kernel = rng.integers(0, 256, (o, kh, kw, icpg), dtype=np.int64
+                              ).astype(np.uint8)
+        bias = rng.integers(-5000, 5000, (o,), dtype=np.int64).astype(
+            np.int32)
+        return [pack_conv_weights(kernel, bias, izp, kzp, groups,
+                                  transposed=True, device=d)
+                for d in (cuda, "cpu")]
+
+    # ENet's upsamples at 256: (label, H = W, Cin, O), fp32, zps 128.
+    rp = make_requant_params("fp32", 0.002, 128, 128, 255)
+    for label, hw, cin, o in (("dec1_up", 16, 128, 64),
+                              ("dec2_up", 32, 64, 16),
+                              ("classifier", 64, 16, 12)):
+        p, p_cpu = pair(o, 2, 2, cin, 1, 128, 128)
+        a = torch.from_numpy(rng.integers(0, 256, (1, hw, hw, cin),
+                                          dtype=np.int64).astype(np.uint8))
+        g = deconv_plan(p, rp, (2, 2)).record
+        g_cpu = deconv_plan(p_cpu, rp, (2, 2)).record
+        a2 = a.reshape(-1, cin)
+        compare(torch, err, "q8gemm",
+                f"enet {label} deconv {a2.shape[0]}x{cin}->{g.n}",
+                K.q8gemm_cuda(a2.to(cuda), g, rp),
+                K.q8gemm_plain(a2, g_cpu, rp))
+        got = q8deconv2d(a.to(cuda), p, rp, (2, 2))
+        if not torch.equal(got.cpu(), q8deconv2d(a, p_cpu, rp, (2, 2))):
+            raise AssertionError(f"enet {label} deconv: card != CPU")
+        log(f"  {'deconv':10s} {'enet ' + label + ' k_eq_s':44s} equal")
+    # (label, B, H, W, Cin, O, k, groups, strides, padding, adjustment,
+    #  dilation, scheme, expected launches)
+    cases = [
+        ("k_eq_s", 2, 9, 7, 32, 40, 2, 1, (2, 2), 0, 0, 1, "q31",
+         dict(q8gemm=1)),
+        ("k_eq_s g2 3x3 s3", 2, 5, 6, 16, 24, 3, 2, (3, 3), 0, 0, 1, "fp32",
+         dict(q8conv=1)),
+        ("phase 3x3 s2 pad 1 adj 1", 2, 9, 8, 24, 32, 3, 1, (2, 2), 1, 1, 1,
+         "q31", dict(q8conv=4)),
+        ("phase k < s 2x2 s3", 1, 7, 6, 8, 12, 2, 1, (3, 3), 0, 0, 1,
+         "fp32", dict(q8conv=4)),
+        ("phase g2 s(3,2)", 2, 6, 5, 16, 12, 3, 2, (3, 2), 1, 1, 1, "q31",
+         dict(q8conv=6)),
+        ("phase depthwise", 2, 9, 9, 24, 24, 3, 24, (2, 2), 1, 0, 1,
+         "gemmlowp", dict(q8dwconv=4)),
+        ("dilated s1 3x3 pad 1", 2, 9, 9, 16, 24, 3, 1, (1, 1), 1, 0, 1,
+         "fp32", dict(q8conv=1)),
+        ("dilated d2 s2", 1, 6, 7, 8, 8, 3, 1, (2, 2), 0, 0, 2, "precise",
+         dict(q8conv=1)),
+    ]
+    for (label, b, h, w, cin, o, k, groups, strides, pad, adj, dil, scheme,
+         launches) in cases:
+        p, p_cpu = pair(o, k, k, cin // groups, groups, 121, 103)
+        geom = (strides, ((pad, pad), (pad, pad)), (adj, adj), (dil, dil))
+        rp = make_requant_params(scheme, 0.0008, 117)
+        lowering = deconv_lowering(p, *geom)
+        if lowering != label.split()[0]:
+            raise AssertionError(f"deconv {label}: lowering {lowering}")
+        a = torch.from_numpy(rng.integers(0, 256, (b, h, w, cin),
+                                          dtype=np.int64).astype(np.uint8))
+        deconv_plan(p, rp, *geom)
+        K.reset_launch_counts()
+        got = q8deconv2d(a.to(cuda), p, rp, *geom)
+        ran = {n: v for n, v in K.launch_counts().items() if v}
+        if ran != launches:
+            raise AssertionError(f"deconv {label}: launched {ran}, not "
+                                 f"{launches}")
+        compare(torch, err, list(launches)[0], f"deconv {label}", got,
+                q8deconv2d(a, p_cpu, rp, *geom))
+
+
+def check_row_sums(torch, err, u8, sms):
+    """The row-sum pair (nn/gemm.py:q8gemm_row_sums_out ->
+    q8gemm_presummed) on the card: the producer's y and rs and the
+    consumer's output each equal their plain versions (on the card), and
+    the consumer's output equals plain q8gemm on y, with kzp != 128 on both
+    stages.  Chains: a small odd one, BERT's b1 out -> ffn1 (the producer
+    split over K) and ffn1 -> ffn2 (the consumer split), and b128 out ->
+    ffn1, where the consumer runs at ffn1's shape (M = 16,384, K = 768,
+    N = 3,072), which is then timed beside plain q8gemm, and the producer
+    beside q8gemm at out's.  Returns the timing row."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.kernels import q8gemm as G
+    from qnnpack_tpu_torch.nn.packing import pack_gemm_weights
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+    cuda = torch.device("cuda")
+    splits = set()
+    timing = {}
+    for label, m, k, n1, n2 in (("odd", 17, 33, 29, 45),
+                                ("b1 out->ffn1", 128, 768, 768, 3072),
+                                ("b1 ffn1->ffn2", 128, 768, 3072, 768),
+                                ("b128 out->ffn1", 16384, 768, 768, 3072)):
+        p1 = pack_gemm_weights(u8(n1, k), np.arange(n1, dtype=np.int32) * 3,
+                               121, 103, device=cuda)
+        p2 = pack_gemm_weights(u8(n2, n1), None, 117, 99, device=cuda)
+        rp1 = make_requant_params("fp32", 0.0008, 117)
+        rp2 = make_requant_params("q31", 0.0006, 121)
+        for stage, (mm, kk, nn) in (("producer", (m, k, n1)),
+                                    ("consumer", (m, n1, n2))):
+            plan = gemm_plan(mm, nn, kk, 1, sms)
+            splits.add((stage, plan[1] > 1))
+        x = torch.from_numpy(u8(m, k)).to(cuda)
+        y, rs = G.q8gemm_row_sums_cuda(x, p1, rp1)
+        compare(torch, err, "q8gemm", f"row sums {label} producer y", y,
+                K.q8gemm_plain(x, p1, rp1))
+        if not torch.equal(rs, G.row_sums_plain(y)):
+            raise AssertionError(f"row sums {label}: producer rs != plain")
+        z = G.q8gemm_presummed_cuda(y, rs, p2, rp2)
+        compare(torch, err, "q8gemm", f"row sums {label} consumer", z,
+                G.q8gemm_presummed_plain(y, rs, p2, rp2))
+        compare(torch, err, "q8gemm", f"row sums {label} consumer == q8gemm",
+                z, K.q8gemm_plain(y, p2, rp2))
+        if label.startswith("b128"):
+            # Each instance beside the plain one, in turns (plain, row
+            # sums, row sums, plain), means of the pairs.
+            timing = dict(
+                label=f"{m}x{k}->{n1} producer, {m}x{n1}->{n2} consumer")
+            for name, plain, rowsum in (
+                    ("producer", lambda: K.q8gemm_cuda(x, p1, rp1),
+                     lambda: G.q8gemm_row_sums_cuda(x, p1, rp1)),
+                    ("consumer", lambda: K.q8gemm_cuda(y, p2, rp2),
+                     lambda: G.q8gemm_presummed_cuda(y, rs, p2, rp2))):
+                t = [time_ms(fn, torch) for fn in (plain, rowsum, rowsum,
+                                                   plain)]
+                timing[f"{name}_ms"] = (t[1] + t[2]) / 2
+                timing[f"q8gemm_{name}_shape_ms"] = (t[0] + t[3]) / 2
+            log(f"    row-sum pair b128: producer {timing['producer_ms']:.4f}"
+                f" ms (q8gemm {timing['q8gemm_producer_shape_ms']:.4f}) at "
+                f"{m}x{k}->{n1}; consumer {timing['consumer_ms']:.4f} ms "
+                f"(q8gemm {timing['q8gemm_consumer_shape_ms']:.4f}) at "
+                f"ffn1's {m}x{n1}->{n2}")
+    want = {(s, b) for s in ("producer", "consumer") for b in (False, True)}
+    if splits != want:
+        raise AssertionError(f"row-sum chains split {sorted(splits)}, want "
+                             "each stage split and unsplit")
+    return timing
+
+
+def check_float_ops(torch, rng):
+    """nn/float_ops.py on the card against its CPU run, at tests/
+    test_float_ops.py's shapes and within its tolerances (fp32: rtol and
+    atol 1e-5 for the GEMM, 1e-4 for the convs; bf16: rtol 1/128, atol
+    1/64)."""
+    from qnnpack_tpu_torch.nn import float_ops as FO
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def close(label, fn, args, kwargs, rtol, atol):
+        got = fn(*[a.cuda() for a in args], **kwargs)
+        want = fn(*args, **kwargs)
+        if got.device.type != "cuda" or got.dtype != want.dtype:
+            raise AssertionError(f"{label}: {got.device} {got.dtype}")
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().numpy(), rtol=rtol,
+                                   atol=atol, err_msg=label)
+        diff = float((got.float().cpu() - want.float()).abs().max())
+        log(f"  {'float':10s} {label:44s} within tolerance (max |err| "
+            f"{diff:.3g})")
+
+    clamp = dict(output_min=-1.0, output_max=1.0)
+    for m, n, k in ((1, 8, 8), (5, 17, 23), (32, 128, 64)):
+        close(f"sgemm {m}x{k}->{n} clamp 1", FO.sgemm,
+              (normal(m, k), normal(k, n), normal(n)), clamp, 1e-5, 1e-5)
+    close("sgemm 4x16->8", FO.sgemm, (normal(4, 16), normal(16, 8)), {},
+          1e-5, 1e-6)
+    for m, n, k in ((8, 8, 8), (16, 64, 32)):
+        close(f"hgemm {m}x{k}->{n}", FO.hgemm,
+              (normal(m, k), normal(k, n), normal(n)), {}, 1 / 128, 1 / 64)
+    for groups in (1, 4):
+        close(f"sconv2d 2x9x9x8 3x3 s2 g{groups}", FO.sconv2d,
+              (normal(2, 9, 9, 8), normal(3, 3, 8 // groups, 12)),
+              dict(strides=(2, 2), padding=((1, 1), (1, 1)), groups=groups),
+              1e-4, 1e-4)
+    close("sdwconv2d 2x8x8x16 3x3", FO.sdwconv2d,
+          (normal(2, 8, 8, 16), normal(3, 3, 16)),
+          dict(padding=((1, 1), (1, 1))), 1e-4, 1e-4)
+
+
 # ------------------------------------------------ phase 6: main-path calls
 def traced_inputs(model, params, spec, x):
     """Run one forward layer by layer; yield (tag, name, layer, packed,
@@ -1409,7 +1631,8 @@ def kernel_calls(torch, model, params, spec, x):
     shuffles and concats get records too (kernel "x8zip" / "concat", with
     `run` only): data movement outside the kernels."""
     from qnnpack_tpu_torch import kernels as K
-    from qnnpack_tpu_torch.nn.conv import dense_conv_route, im2col
+    from qnnpack_tpu_torch.nn.conv import (deconv_plan, dense_conv_route,
+                                           depth_to_space, im2col)
     from qnnpack_tpu_torch.nn.elementwise import x8zip
     from qnnpack_tpu_torch.nn.packing import PackedGemmWeights
     F = torch.nn.functional
@@ -1427,6 +1650,32 @@ def kernel_calls(torch, model, params, spec, x):
                        plain=lambda a=a, b=other, l=layer: K.q8vadd_plain(
                            a, b, l),
                        library=None, bytes=3 * n, ops=4 * n)
+        elif tag == "deconv":
+            # ENet's deconvs: the k == s lowering, groups 1 (one q8gemm
+            # launch on the plan's phase-major weights, then the
+            # depth-to-space copy).
+            cs, adj = layer
+            plan = deconv_plan(p, cs.rparams, cs.strides, cs.padding, adj)
+            if plan.lowering != "k_eq_s" or p.groups != 1:
+                raise AssertionError(f"{name}: {plan.lowering} deconv, "
+                                     f"groups {p.groups}")
+            g, a2 = plan.record, a.reshape(-1, a.shape[-1])
+            m, k = a2.shape
+            yield dict(kernel="q8gemm", label=f"{name} deconv {m}x{k}->{g.n}",
+                       plan=plan_tag(gemm_plan(m, g.n, k, 1, sms)),
+                       run=lambda a2=a2, g=g, r=cs.rparams: K.q8gemm_cuda(
+                           a2, g, r),
+                       plain=lambda a2=a2, g=g, r=cs.rparams: K.q8gemm_plain(
+                           a2, g, r),
+                       library=int_mm_yardstick(torch, a2, g.w),
+                       bytes=m * k + k * g.n + 4 * g.n + m * g.n,
+                       ops=2 * m * g.n * k)
+            y = K.q8gemm_cuda(a2, g, cs.rparams).reshape(*a.shape[:3], g.n)
+            yield dict(kernel="depth_to_space",
+                       label=f"{name} {tuple(y.shape)} s{cs.strides[0]}",
+                       run=lambda y=y, st=cs.strides: depth_to_space(
+                           y, st[0], st[1], 1),
+                       bytes=2 * y.numel())
         elif tag == "shuffle":
             yield dict(kernel="x8zip", label=f"{name} {tuple(a.shape)}",
                        run=lambda a=a, g=layer: x8zip(a, g),
@@ -1608,7 +1857,8 @@ def forward_ips(torch, fn, params, x, iters):
 def check_output(torch, model, y, y_cpu):
     """Raise unless the card's batch-1 output `y` has the model's shape and
     equals the CPU forward's `y_cpu` byte for byte, and is not constant."""
-    want = (1, 1000) if model != "bert_base_s128" else (1, 128, 768)
+    want = {"bert_base_s128": (1, 128, 768),
+            "enet_seg": (1, 256, 256, 12)}.get(model, (1, 1000))
     if tuple(y.shape) != want or y.dtype != torch.uint8:
         raise AssertionError(f"{model} output {tuple(y.shape)} {y.dtype}, "
                              f"want {want} uint8")
@@ -1691,7 +1941,11 @@ def ops_cases(torch, rng):
     FullyConnected at use_pallas=False (which still launches q8gemm) and at
     odd K and N; the pools with and without a range, AveragePooling2D at
     17x17 (32-bit sums), GlobalAveragePooling at widths 49, 258 (with a
-    range) and 1,000."""
+    range) and 1,000; Deconvolution2D at each lowering (k == s as ENet's
+    first upsample at batch 4, the phases of a 3x3 stride-2 deconv with
+    padding and adjustment, a stride-1 3x3) at zero points (128, 128) and
+    (121, 103) under q31 and fp32, a grouped k == s deconv at kzp 103 and
+    a k < s one (2x2 stride 3: five of its nine phases take no tap)."""
     def u8(*shape):
         return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.int64)
                                 .astype(np.uint8))
@@ -1714,6 +1968,10 @@ def ops_cases(torch, rng):
         else:
             out["requant"] = scheme
         return out
+
+    def deconv(o, kh, kw, icpg, scheme, zps, **kw_):
+        return dict(weights((o, kh, kw, icpg), o, kh * kw * icpg, zps[1]),
+                    input_zero_point=zps[0], requant=scheme, **kw_)
 
     add = dict(a_zero_point=10, a_scale=0.25, b_zero_point=200, b_scale=0.75,
                sum_zero_point=128, sum_scale=0.5)
@@ -1774,6 +2032,22 @@ def ops_cases(torch, rng):
               (128, 49, 1280, {}),
               (4, 258, 40, dict(output_min=80, output_max=90)),
               (4, 1000, 17, {}))],
+        *[("Deconvolution2D", deconv(64, 2, 2, 128, r, zps, strides=(2, 2)),
+           [u8(4, 16, 16, 128)], dict(q8gemm=1))
+          for zps in ((128, 128), (121, 103)) for r in ("q31", "fp32")],
+        *[("Deconvolution2D", deconv(32, 3, 3, 64, r, zps, strides=(2, 2),
+                                     padding=p1, adjustment=(1, 1)),
+           [u8(4, 28, 28, 64)], dict(q8conv=4))
+          for zps in ((128, 128), (121, 103)) for r in ("q31", "fp32")],
+        *[("Deconvolution2D", deconv(32, 3, 3, 32, r, zps, padding=p1),
+           [u8(4, 28, 28, 32)], dict(q8conv=1))
+          for zps in ((128, 128), (121, 103)) for r in ("q31", "fp32")],
+        ("Deconvolution2D", deconv(48, 2, 2, 32, "fp32", (121, 103),
+                                   groups=2, strides=(2, 2)),
+         [u8(4, 16, 16, 64)], dict(q8conv=1)),
+        ("Deconvolution2D", deconv(16, 2, 2, 32, "q31", (121, 103),
+                                   strides=(3, 3)),
+         [u8(4, 14, 14, 32)], dict(q8conv=4)),
     ]
 
 
@@ -1840,6 +2114,9 @@ def check_ops(torch, err):
         if name == "Convolution2D":
             label += f" {op.kernel_type} " + (
                 "pc" if "per_channel_requant" in kw else kw["requant"])
+        elif name == "Deconvolution2D":
+            label += (f" {op.lowering} {kw['requant']} zps "
+                      f"{kw['input_zero_point']},{kw['kernel_zero_point']}")
         elif name == "FullyConnected":
             label += f" use_pallas={op.use_pallas}"
         if mine != launched:
@@ -1854,6 +2131,7 @@ def check_ops(torch, err):
             log(f"  {'(torch)':11s} {label:44s} equal")
 
     graph_rows = time_ops_graph(torch, cases, on_card, own)
+    deconv_rows = time_deconv_ops(torch, cases, on_card)
 
     n = x.numel()
     lo, hi = clamp.qparams.output_min, clamp.qparams.output_max
@@ -1868,7 +2146,47 @@ def check_ops(torch, err):
         f"{row['plain_ms']:.4f} ms, torch.clamp {row['library_ms']:.4f} ms")
     for _, op, _ in on_card:
         op.delete()
-    return captured, [row], graph_rows
+    return captured, [row], graph_rows, deconv_rows
+
+
+def time_deconv_ops(torch, cases, on_card):
+    """Each Deconvolution2D of phase 6 at q31, zero points (121, 103),
+    timed eagerly on the device (queued) as a whole and in its parts
+    (nn/conv.py): the kernel launches alone (deconv_launches on the
+    prepared input) and the lowering's copies alone (deconv_input's
+    dilation where there is one, and deconv_output's depth-to-space or
+    phase interleave).  Returns the rows."""
+    from qnnpack_tpu_torch.nn.conv import (deconv_input, deconv_launches,
+                                           deconv_output, deconv_plan)
+    rows = []
+    log("    Deconvolution2D eager, device ms (queued): whole run = kernel "
+        "launches + copies")
+    for (name, kw, _, launched), (_, op, xs) in zip(cases, on_card):
+        if name != "Deconvolution2D" or kw["requant"] != "q31" or \
+                kw["kernel_zero_point"] == 128:
+            continue
+        x = xs[0]
+        b, h, w, _ = x.shape
+        plan = deconv_plan(op.packed, op.rparams, op.strides, op.padding,
+                           op.adjustment, op.dilation)
+        a_in = deconv_input(x, op.packed, plan)
+        ys = deconv_launches(a_in, op.packed, op.rparams, plan, h, w)
+        out = deconv_output(ys, op.packed, plan, b, h, w)
+        row = dict(
+            label=f"ops.Deconvolution2D {tuple(x.shape)} {plan.lowering}",
+            lowering=plan.lowering, launches=launched,
+            out_bytes=out.numel(),
+            ms=time_ms(lambda: op._forward(x), torch),
+            launches_ms=time_ms(lambda: deconv_launches(
+                a_in, op.packed, op.rparams, plan, h, w), torch),
+            copies_ms=time_ms(lambda: (deconv_input(x, op.packed, plan),
+                                       deconv_output(ys, op.packed, plan, b,
+                                                     h, w)), torch))
+        rows.append(row)
+        log(f"      {row['label']:48s} {row['ms']:.4f} ms = launches "
+            f"{row['launches_ms']:.4f} ({launched}) + copies "
+            f"{row['copies_ms']:.4f} (output {out.numel()} bytes)")
+    return rows
 
 
 # Phase 6's operators timed as a graph and eagerly (indices into ops_cases):
@@ -2286,6 +2604,13 @@ def main() -> int:
     log("[2] kernels against their plain versions (CPU copies, torch.equal)")
     max_err = {name: 0 for name in K.KERNELS}
     check_kernels(torch, max_err)
+    rng2 = np.random.default_rng(4321)
+    check_deconvs(torch, max_err, rng2)
+    row_sum_timing = check_row_sums(
+        torch, max_err, lambda *shape: rng2.integers(
+            0, 256, shape, dtype=np.int64).astype(np.uint8),
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    check_float_ops(torch, rng2)
 
     models = {}
     launches = {}
@@ -2329,8 +2654,8 @@ def main() -> int:
 
     log("[6] lifecycle operators on the card against their CPU runs")
     per_shape = {}
-    launches["ops"], per_shape["ops b128"], ops_graph = check_ops(
-        torch, max_err)
+    launches["ops"], per_shape["ops b128"], ops_graph, deconv_rows = \
+        check_ops(torch, max_err)
 
     imported, imported_launches, imported_served, imported_latency = \
         check_imported(torch)
@@ -2441,7 +2766,8 @@ def main() -> int:
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         nvcc_seconds=_build.build_seconds, ptxas=ptxas,
         launch_floor_ms=floor_ms, forward=forward, timing=timing,
-        ops_graph=ops_graph,
+        ops_graph=ops_graph, row_sums=row_sum_timing,
+        deconv_ops=deconv_rows,
         launches_per_forward=launches,
         served_batches=served_batches, served_p50_ms=latency,
         kernels=kernels_line, per_shape=per_shape), indent=1))

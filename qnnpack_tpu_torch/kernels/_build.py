@@ -37,7 +37,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "qnn_q8gemm": [_I, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                    _I, _I, _I, _P, _P,
-                   _I, _I, _I, _I, _I, _I, _F, _P],
+                   _I, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "qnn_q8dwconv": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 18
                     + [_I] * 6 + [_F, _P],
     "qnn_q8vadd": [_I, _P, _P, _P, _I64] + [_I] * 7 + [_P],

@@ -375,13 +375,16 @@ __device__ __forceinline__ bool split_reduce(Acc<T>& acc, const Split& sp,
 
 // Pass 2 of the epilogue: each thread takes 16 columns of a staged row,
 // adds c, requantizes with scheme S (fixed at compile time, so
-// requantize()'s switch folds away) and stores the 16 bytes.
-template <class T, int S>
+// requantize()'s switch folds away) and stores the 16 bytes.  With
+// ROW_SUMS, it also adds sum (y - 128) of its bytes to row_part[r] (shared
+// memory, the block's partial row sums; only q8gemm.cu's row-sum producer
+// compiles it).
+template <class T, int S, bool ROW_SUMS = false>
 __device__ __forceinline__ void store_rows(
     const uint32_t* stage, int64_t m0, int n0, int64_t m, int n,
     int64_t out_stride, int col_base, const int32_t* __restrict__ bias_c,
     const float* __restrict__ scales, const Requant& rp_in,
-    uint8_t* __restrict__ out) {
+    uint8_t* __restrict__ out, int32_t* row_part) {
   Requant rp = rp_in;
   rp.scheme = S;
   constexpr int kSegs = T::BN / 16;
@@ -431,6 +434,17 @@ __device__ __forceinline__ void store_rows(
                                            cs))
           << (8 * (b % 4));
     }
+    if constexpr (ROW_SUMS) {
+      int32_t sum = 0;
+#pragma unroll
+      for (int b = 0; b < 16; ++b) {
+        if (b < len) {
+          sum += static_cast<int32_t>((words[b / 4] >> (8 * (b % 4))) & 0xFF) -
+                 128;
+        }
+      }
+      atomicAdd(row_part + r, sum);
+    }
     uint8_t* dst = out + gm * out_stride + col;
     const auto addr = reinterpret_cast<uintptr_t>(dst);
     if (len == 16 && addr % 16 == 0) {
@@ -461,13 +475,15 @@ __device__ __forceinline__ void store_rows(
 // The output side of one tile.  Tile column gn < n lands in output column
 // col_base + gn of rows out_stride bytes apart and reads c and the channel
 // scale of that column: a GEMM passes (n, 0), group g of a grouped conv
-// (groups * n, g * n).  The ring holds the staged tile.
-template <class T>
+// (groups * n, g * n).  The ring holds the staged tile.  ROW_SUMS adds the
+// tile's row sums of y - 128 to row_part (see store_rows), which the
+// caller zeroes before the call.
+template <class T, bool ROW_SUMS = false>
 __device__ __forceinline__ void epilogue(
     const Acc<T>& acc, uint8_t* ring, int64_t m0, int n0, int64_t m, int n,
     int64_t out_stride, int col_base, const int32_t* __restrict__ bias_c,
     const float* __restrict__ scales, int kzp_biased, const Requant& rp,
-    uint8_t* __restrict__ out) {
+    uint8_t* __restrict__ out, int32_t* row_part = nullptr) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row0 = (warp / T::WN) * T::kWarpRows + (lane >> 2);
@@ -492,24 +508,28 @@ __device__ __forceinline__ void epilogue(
   __syncthreads();
   switch (rp.scheme) {
     case kQ31:
-      store_rows<T, kQ31>(stage, m0, n0, m, n, out_stride, col_base, bias_c,
-                          scales, rp, out);
+      store_rows<T, kQ31, ROW_SUMS>(stage, m0, n0, m, n, out_stride, col_base,
+                                    bias_c, scales, rp, out, row_part);
       break;
     case kFP32:
-      store_rows<T, kFP32>(stage, m0, n0, m, n, out_stride, col_base,
-                           bias_c, scales, rp, out);
+      store_rows<T, kFP32, ROW_SUMS>(stage, m0, n0, m, n, out_stride,
+                                     col_base, bias_c, scales, rp, out,
+                                     row_part);
       break;
     case kPrecise:
-      store_rows<T, kPrecise>(stage, m0, n0, m, n, out_stride, col_base,
-                              bias_c, scales, rp, out);
+      store_rows<T, kPrecise, ROW_SUMS>(stage, m0, n0, m, n, out_stride,
+                                        col_base, bias_c, scales, rp, out,
+                                        row_part);
       break;
     case kGemmlowp:
-      store_rows<T, kGemmlowp>(stage, m0, n0, m, n, out_stride, col_base,
-                               bias_c, scales, rp, out);
+      store_rows<T, kGemmlowp, ROW_SUMS>(stage, m0, n0, m, n, out_stride,
+                                         col_base, bias_c, scales, rp, out,
+                                         row_part);
       break;
     default:
-      store_rows<T, kFP32PerChannel>(stage, m0, n0, m, n, out_stride,
-                                     col_base, bias_c, scales, rp, out);
+      store_rows<T, kFP32PerChannel, ROW_SUMS>(stage, m0, n0, m, n,
+                                               out_stride, col_base, bias_c,
+                                               scales, rp, out, row_part);
   }
 }
 

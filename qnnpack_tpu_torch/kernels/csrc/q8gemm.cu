@@ -26,6 +26,18 @@
 // four block shapes and split-K picked by the wrapper), with an instance of
 // its own for the 16-byte copies of the main paths.  wgmma with TMA and a
 // producer warp is the step after this one.
+//
+// Two more instances of each shape serve the row-sum pair of nn/gemm.py
+// (the JAX package's q8gemm_row_sums_out / q8gemm_presummed):
+//   - the producer's epilogue adds each tile's sum_n (y[m, n] - 128) of its
+//     requantized bytes to an int32 [M] buffer (zeroed by the wrapper): a
+//     block sums its rows in shared memory, then adds each row once with
+//     one global atomic; under split-K only the block that finishes a tile
+//     runs the epilogue;
+//   - the consumer takes those sums rs[m] = sum_k (A[m, k] - 128) in place
+//     of its row-sum mma: c assumes the raw sum A, which is rs[m] + 128 K
+//     with the true K (zeros past K add nothing).
+// Both are compile-time flags (RS), so the plain instances are unchanged.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -68,6 +80,13 @@ struct GemmArgs {
   im::Split sp;
 };
 
+// The row-sum instances' arguments (RS != kPlain).
+enum RowSums { kPlain = 0, kProduce = 1, kConsume = 2 };
+struct RowSumGemmArgs : GemmArgs {
+  const int32_t* rs_in;  // kConsume: [M] sum_k (A - 128)
+  int32_t* rs_out;       // kProduce: [M], zeroed; gets sum_n (y - 128)
+};
+
 // W = 16: every A copy is 16 bytes (the main paths' case, compiled on its
 // own so that it carries no other path); W = 0: the width is `width`.
 template <class T, int W>
@@ -97,9 +116,9 @@ struct GemmLoader {
   }
 };
 
-template <class T, int W>
+template <class T, int W, int RS, class Args>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
-    q8gemm_kernel(const GemmArgs p) {
+    q8gemm_kernel(const Args p) {
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ int flag;
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * T::BM;
@@ -116,25 +135,55 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
                             p.k,  p.kp,
                             p.n - n0, p.width};
   im::Acc<T> acc;
-  im::mainloop<T>(ld, ring, step0, nsteps, p.kzp_biased != 0, acc);
+  im::mainloop<T>(ld, ring, step0, nsteps,
+                  RS != kConsume && p.kzp_biased != 0, acc);
   if (p.sp.splits > 1) {
     const int64_t tile =
         static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
     if (!im::split_reduce<T>(acc, p.sp, tile, split, &flag)) return;
   }
-  im::epilogue<T>(acc, ring, m0, n0, p.m, p.n, p.n, 0, p.bias_c, p.scales,
-                  p.kzp_biased, p.rp, p.out);
+  if constexpr (RS == kConsume) {
+    // The epilogue's -kzp' * rowsum term, from the given sums (uint32).
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int row0 = (warp / T::WN) * T::kWarpRows + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t gm = m0 + row0 + i * 16 + 8 * h;
+        acc.rs[i][2 * h] =
+            gm < p.m ? static_cast<int32_t>(
+                           static_cast<uint32_t>(__ldg(p.rs_in + gm)) +
+                           128u * static_cast<uint32_t>(p.k))
+                     : 0;
+      }
+    }
+  }
+  if constexpr (RS == kProduce) {
+    __shared__ int32_t row_part[T::BM];
+    for (int r = threadIdx.x; r < T::BM; r += T::kThreads) row_part[r] = 0;
+    im::epilogue<T, true>(acc, ring, m0, n0, p.m, p.n, p.n, 0, p.bias_c,
+                          p.scales, p.kzp_biased, p.rp, p.out, row_part);
+    __syncthreads();
+    for (int r = threadIdx.x; r < T::BM; r += T::kThreads) {
+      if (m0 + r < p.m) atomicAdd(p.rs_out + m0 + r, row_part[r]);
+    }
+  } else {
+    im::epilogue<T>(acc, ring, m0, n0, p.m, p.n, p.n, 0, p.bias_c, p.scales,
+                    p.kzp_biased, p.rp, p.out);
+  }
 }
 
-template <class T>
-cudaError_t launch(const GemmArgs& p, int device, cudaStream_t stream) {
+template <class T, int RS, class Args>
+cudaError_t launch(const Args& p, int device, cudaStream_t stream) {
   static unsigned ready = 0;
-  const cudaError_t err =
-      im::allow_smem(q8gemm_kernel<T, 16>, q8gemm_kernel<T, 0>,
-                     T::kSmemBytes, device, ready);
+  const cudaError_t err = im::allow_smem(q8gemm_kernel<T, 16, RS, Args>,
+                                         q8gemm_kernel<T, 0, RS, Args>,
+                                         T::kSmemBytes, device, ready);
   if (err != cudaSuccess) return err;
-  const auto kernel =
-      p.width == 16 ? q8gemm_kernel<T, 16> : q8gemm_kernel<T, 0>;
+  const auto kernel = p.width == 16 ? q8gemm_kernel<T, 16, RS, Args>
+                                    : q8gemm_kernel<T, 0, RS, Args>;
   const dim3 grid(static_cast<unsigned>((p.m + T::BM - 1) / T::BM),
                   static_cast<unsigned>((p.n + T::BN - 1) / T::BN),
                   static_cast<unsigned>(p.sp.splits));
@@ -142,18 +191,42 @@ cudaError_t launch(const GemmArgs& p, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int RS, class Args>
+cudaError_t launch_tile(const Args& p, int tile, int device,
+                        cudaStream_t s) {
+  switch (tile) {
+    case 0:
+      return launch<im::Tile128x128, RS>(p, device, s);
+    case 1:
+      return launch<im::Tile128x64, RS>(p, device, s);
+    case 2:
+      return launch<im::Tile64x64, RS>(p, device, s);
+    case 3:
+      if (p.sp.splits > 1 &&
+          p.sp.steps_per_split % im::Tile128x128Deep::kUnits) {
+        return cudaErrorInvalidValue;
+      }
+      return launch<im::Tile128x128Deep, RS>(p, device, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // tile: 0 = 128 x 128, 1 = 128 x 64, 2 = 64 x 64 (kernels/q8gemm.py TILES).
 // splits > 1 needs `workspace` ([tiles, splits, BM * BN + BM] int32) and
-// `counters` ([tiles] int32, all 0; left all 0).
+// `counters` ([tiles] int32, all 0; left all 0).  At most one of
+// `row_sums_in` (the consumer's [M] sums of A - 128) and `row_sums_out`
+// (the producer's [M] int32 buffer, zeroed) is given.
 extern "C" int qnn_q8gemm(int device, const void* a, const void* w,
                           const void* bias_c, const void* scales, void* out,
                           int64_t m, int n, int k, int kp, int kzp_biased,
                           int tile, int splits, int steps_per_split,
                           void* workspace, void* counters, int scheme,
                           int multiplier, int shift, int zero_point, int qmin,
-                          int qmax, float scale, void* stream) {
+                          int qmax, float scale, const void* row_sums_in,
+                          void* row_sums_out, void* stream) {
   const qnn::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) {
     return static_cast<int>(guard.error());
@@ -165,7 +238,8 @@ extern "C" int qnn_q8gemm(int device, const void* a, const void* w,
       static_cast<int64_t>(splits) * steps_per_split < steps ||
       (splits - 1) * steps_per_split >= steps ||
       (splits > 1 && (workspace == nullptr || counters == nullptr)) ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      (row_sums_in != nullptr && row_sums_out != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const GemmArgs p{static_cast<const uint8_t*>(a),
@@ -180,21 +254,16 @@ extern "C" int qnn_q8gemm(int device, const void* a, const void* w,
                              static_cast<int32_t*>(workspace),
                              static_cast<int*>(counters)}};
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (tile) {
-    case 0:
-      return static_cast<int>(launch<im::Tile128x128>(p, device, s));
-    case 1:
-      return static_cast<int>(launch<im::Tile128x64>(p, device, s));
-    case 2:
-      return static_cast<int>(launch<im::Tile64x64>(p, device, s));
-    case 3:
-      if (splits > 1 && steps_per_split % im::Tile128x128Deep::kUnits) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      return static_cast<int>(launch<im::Tile128x128Deep>(p, device, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (row_sums_in == nullptr && row_sums_out == nullptr) {
+    return static_cast<int>(launch_tile<kPlain>(p, tile, device, s));
   }
+  RowSumGemmArgs r;
+  static_cast<GemmArgs&>(r) = p;
+  r.rs_in = static_cast<const int32_t*>(row_sums_in);
+  r.rs_out = static_cast<int32_t*>(row_sums_out);
+  return static_cast<int>(
+      row_sums_in != nullptr ? launch_tile<kConsume>(r, tile, device, s)
+                             : launch_tile<kProduce>(r, tile, device, s));
 }
 
 extern "C" const char* qnn_error_string(int code) {

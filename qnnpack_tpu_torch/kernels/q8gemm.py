@@ -9,6 +9,12 @@ tensors it launches the kernel or raises; there is no fallback.
 
 `tile_plan` picks the kernel's block shape and split-K for q8gemm and
 q8conv alike (csrc/imma_tile.cuh).
+
+`q8gemm_row_sums_cuda` and `q8gemm_presummed_cuda` are the row-sum pair
+(the JAX package's nn/gemm.py:q8gemm_row_sums_out / q8gemm_presummed): the
+same kernel, whose producer instance also writes rs[m] = sum_n (y[m, n] -
+128) and whose consumer instance takes those sums in place of its own row
+sums.  Each is one q8gemm launch, counted in `q8gemm_cuda.launches`.
 """
 
 from __future__ import annotations
@@ -158,10 +164,11 @@ def plan_launch(device, stream: int, m: int, n: int, steps: int,
 
 
 def gemm_acc_plain(a_u8: torch.Tensor, w: torch.Tensor,
-                   bias_folded: torch.Tensor, kzp_biased: int):
+                   bias_folded: torch.Tensor, kzp_biased: int,
+                   row_sums: torch.Tensor | None = None):
     """int32 accumulator [..., N] of uint8 [..., K] x biased int8 [K, N]:
     sum_k A'W' - kzp' * sum_k A' + bias', as an int64 tensor holding the
-    wrapped int32 value.
+    wrapped int32 value; `row_sums` [...] stands for sum_k A' where given.
 
     The product runs as a float64 matmul, which is exact here (every partial
     sum is an integer below 2^53) and runs on the CPU and the GPU alike."""
@@ -170,8 +177,9 @@ def gemm_acc_plain(a_u8: torch.Tensor, w: torch.Tensor,
         torch.int64)
     acc = acc + bias_folded.to(torch.int64)
     if kzp_biased != 0:
-        row_sums = a.to(torch.int64).sum(dim=-1, keepdim=True)
-        acc = acc - kzp_biased * row_sums
+        if row_sums is None:
+            row_sums = a.to(torch.int64).sum(dim=-1)
+        acc = acc - kzp_biased * row_sums.to(torch.int64)[..., None]
     return ((acc + 2**31) & 0xFFFFFFFF) - 2**31
 
 
@@ -181,13 +189,69 @@ def q8gemm_plain(a_u8: torch.Tensor, packed: PackedGemmWeights, rparams):
                                         packed.kzp_biased), rparams)
 
 
-def q8gemm_cuda(a_u8: torch.Tensor, packed: PackedGemmWeights, rparams):
-    """Quantized GEMM uint8 [M, K] -> uint8 [M, N] (any requant scheme)."""
+def row_sums_plain(y_u8: torch.Tensor) -> torch.Tensor:
+    """int32 [M]: sum_n (y[m, n] - 128), wrapped as the JAX int32 sum."""
+    s = y_u8.to(torch.int64).sum(dim=-1) - 128 * y_u8.shape[-1]
+    return (((s + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def q8gemm_presummed_plain(a_u8: torch.Tensor, row_sums: torch.Tensor,
+                           packed: PackedGemmWeights, rparams):
+    """Plain version of the consumer: q8gemm_plain with sum_k A' given."""
+    return apply_requant(gemm_acc_plain(a_u8, packed.w, packed.bias_folded,
+                                        packed.kzp_biased, row_sums), rparams)
+
+
+def _check_gemm(a_u8: torch.Tensor, packed: PackedGemmWeights) -> None:
     if a_u8.dim() != 2 or a_u8.shape[1] != packed.k:
         raise ValueError(f"activations {tuple(a_u8.shape)} do not match "
                          f"K = {packed.k}")
+
+
+def q8gemm_cuda(a_u8: torch.Tensor, packed: PackedGemmWeights, rparams):
+    """Quantized GEMM uint8 [M, K] -> uint8 [M, N] (any requant scheme)."""
+    _check_gemm(a_u8, packed)
     if a_u8.device.type == "cpu":
         return q8gemm_plain(a_u8, packed, rparams)
+    return _launch(a_u8, packed, rparams)
+
+
+def q8gemm_row_sums_cuda(a_u8: torch.Tensor, packed: PackedGemmWeights,
+                         rparams):
+    """The producer: (y uint8 [M, N], rs int32 [M]) with y the quantized
+    GEMM and rs[m] = sum_n (y[m, n] - 128), from one launch whose epilogue
+    sums the bytes it stores."""
+    _check_gemm(a_u8, packed)
+    if a_u8.device.type == "cpu":
+        y = q8gemm_plain(a_u8, packed, rparams)
+        return y, row_sums_plain(y)
+    # Zeroed on the launch's stream: a memset node inside a capture.
+    rs = torch.zeros(a_u8.shape[0], dtype=torch.int32, device=a_u8.device)
+    return _launch(a_u8, packed, rparams, rs_out=rs), rs
+
+
+def q8gemm_presummed_cuda(a_u8: torch.Tensor, row_sums: torch.Tensor,
+                          packed: PackedGemmWeights, rparams):
+    """The consumer: the quantized GEMM of uint8 [M, K] with the row sums
+    sum_k (A[m, k] - 128) given as int32 [M] (the producer's rs), so the
+    kernel sums no row."""
+    _check_gemm(a_u8, packed)
+    if tuple(row_sums.shape) != (a_u8.shape[0],):
+        raise ValueError(f"row sums {tuple(row_sums.shape)} for "
+                         f"{a_u8.shape[0]} rows")
+    if a_u8.device.type == "cpu":
+        return q8gemm_presummed_plain(a_u8, row_sums, packed, rparams)
+    _build.check_cuda("row_sums", row_sums, torch.int32, 1)
+    if row_sums.device != a_u8.device:
+        raise ValueError(f"row sums on {row_sums.device}, activations on "
+                         f"{a_u8.device}")
+    return _launch(a_u8, packed, rparams, rs_in=row_sums)
+
+
+def _launch(a_u8, packed: PackedGemmWeights, rparams, rs_in=None,
+            rs_out=None):
+    """One launch of the kernel on CUDA tensors (the plain instance, or
+    with `rs_in` the consumer's, with `rs_out` the producer's)."""
     _build.check_cuda("a", a_u8, torch.uint8, 2)
     _build.check_cuda("w_kmajor", packed.w_kmajor, torch.int8, 2)
     _build.check_cuda("bias_c", packed.bias_c, torch.int32, 1)
@@ -207,7 +271,9 @@ def q8gemm_cuda(a_u8: torch.Tensor, packed: PackedGemmWeights, rparams):
         "qnn_q8gemm", a_u8.device.index or 0, a_u8.data_ptr(),
         packed.w_kmajor.data_ptr(), packed.bias_c.data_ptr(),
         None if scales is None else scales.data_ptr(), out.data_ptr(),
-        m, packed.n, packed.k, kp, packed.kzp_biased, *plan, *rq, stream)
+        m, packed.n, packed.k, kp, packed.kzp_biased, *plan, *rq,
+        None if rs_in is None else rs_in.data_ptr(),
+        None if rs_out is None else rs_out.data_ptr(), stream)
     q8gemm_cuda.launches += 1
     return out
 

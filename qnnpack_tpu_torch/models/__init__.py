@@ -1,9 +1,10 @@
-"""Quantized models: MobileNetV2, the graph runtime with its zoo, and the
-int8 BERT encoder."""
+"""Quantized models: MobileNetV2, the graph runtime with its zoo and ENet,
+and the int8 BERT encoder."""
 
 from .bert import (  # noqa: F401
     BertConfig, bert_encoder_forward, build_bert_encoder,
 )
+from .enet import enet_seg  # noqa: F401
 from .graph import (  # noqa: F401
     ConvSpec, GraphBuilder, GraphModel, GraphSpec, graph_forward,
     params_from_jax,

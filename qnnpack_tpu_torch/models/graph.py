@@ -9,6 +9,9 @@ weights, layer specs and requant params.  Tags run here:
              q8conv or q8dwconv kernel); a conv whose record is GEMM
              weights (an imported 1x1, stride-1, unpadded dense conv,
              `is_gemm_conv`) runs nn.gemm.q8gemm: q8gemm kernel
+    deconv   transposed conv (nn.conv.q8deconv2d: q8gemm or q8conv
+             launches on the record's DeconvPlan, and a depth-to-space or
+             interleaving copy)
     gemm     1x1-conv / fully-connected (nn.gemm.q8gemm: q8gemm kernel)
     maxpool  (nn.pool.u8maxpool2d: u8maxpool kernel)
     avgpool  (nn.pool.q8avgpool2d: q8avgpool kernel)
@@ -21,10 +24,9 @@ weights, layer specs and requant params.  Tags run here:
     save / load / concat / split / flatten / pad   data movement
 
 `graph_forward` keeps the JAX executor's one peephole: a concat of g
-equal-width slots followed by shuffle(g) is one interleaving copy.
-
-Not ported yet, raising NotImplementedError with its ROADMAP item: the tag
-deconv and the builder method deconv.
+equal-width slots followed by shuffle(g) is one interleaving copy.  A
+deconv layer's plan (nn/conv.py:deconv_plan) is built with its record, by
+the builder and by params_from_jax, so a forward only launches.
 
 GraphBuilder's activations share one synthetic quantization (scale 0.1,
 zp 128), so its adds and concats need no rescale; a graph imported by
@@ -45,7 +47,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels.vpu_ops import q8vadd_cuda
-from ..nn.conv import PackedConvWeights, pack_conv_weights, q8conv2d
+from ..nn.conv import (PackedConvWeights, deconv_plan, pack_conv_weights,
+                       q8conv2d, q8deconv2d)
 from ..nn.elementwise import (build_softargmax_lut, lut32_tensor,
                               u8softargmax, x8lut, x8zip)
 from ..nn.gemm import q8gemm
@@ -59,20 +62,10 @@ ACT_ZP = 128
 KERNEL_SCALE = 0.02
 KERNEL_ZP = 128
 
-# What each unported tag waits for, by ROADMAP item.
-NOT_PORTED = {
-    "deconv": "q8deconv2d (ROADMAP Queue 1 item 7)",
-}
-
-
-def _not_ported(tag: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"graph tag {tag!r} is not ported yet: it waits for {NOT_PORTED[tag]}")
-
 
 @dataclasses.dataclass
 class ConvSpec:
-    kind: str  # "conv" | "gemm"
+    kind: str  # "conv" | "gemm" | "deconv"
     strides: tuple
     padding: tuple
     groups: int
@@ -153,8 +146,18 @@ class GraphBuilder:
                        packed, (k, b))
         return cout
 
-    def deconv(self, name, *args, **kwargs):
-        raise _not_ported("deconv")
+    def deconv(self, name, cin, cout, kernel=(2, 2), strides=(2, 2),
+               padding=((0, 0), (0, 0)), adjustment=(0, 0), groups=1,
+               act="relu"):
+        kh, kw = kernel
+        k = self._kernel(cout, kh, kw, cin // groups)
+        b = self._bias(cout)
+        packed = pack_conv_weights(k, b, ACT_ZP, KERNEL_ZP, groups,
+                                   transposed=True, device=self.device)
+        cs = ConvSpec("deconv", strides, padding, groups, self._rparams(act))
+        deconv_plan(packed, cs.rparams, strides, padding, adjustment)
+        self._emit("deconv", name, (cs, adjustment), packed, (k, b))
+        return cout
 
     def fc(self, name, cin, cout, act="linear"):
         k = self.rng.integers(0, 256, (cout, cin),
@@ -276,6 +279,9 @@ def _graph_layer(tag, payload, p, x, env):
         else:
             x = q8conv2d(x, p, payload.rparams, payload.strides,
                          payload.padding)
+    elif tag == "deconv":
+        cs, adjustment = payload
+        x = q8deconv2d(x, p, cs.rparams, cs.strides, cs.padding, adjustment)
     elif tag == "flatten":
         x = x.reshape(x.shape[0], -1)
     elif tag == "pad":
@@ -287,8 +293,6 @@ def _graph_layer(tag, payload, p, x, env):
         x = x8lut(x, payload)
     elif tag == "softargmax":
         x = u8softargmax(x, payload)
-    elif tag in NOT_PORTED:
-        raise _not_ported(tag)
     else:
         raise ValueError(f"unknown tag {tag!r}")
     return x
@@ -375,14 +379,16 @@ def params_from_jax(arrays, spec: GraphSpec, *, device="cuda"):
     weightless layers); `spec` is the port's spec of the same graph.  A
     layer without raw weights in `spec` (an imported graph) takes its
     shapes and zero points from its record, and an imported 1x1 conv
-    becomes GEMM weights, as io/tflite_import.py packs it."""
+    becomes GEMM weights, as io/tflite_import.py packs it.  A deconv
+    record is flipped already (packed transposed) and is taken as it is;
+    its plan is built from the spec's geometry."""
     dev = resolve_device(device)
     if len(arrays) != len(spec.layers):
         raise ValueError(f"{len(arrays)} records for {len(spec.layers)} layers")
     out = []
     for (tag, name, payload), rec, raw in zip(spec.layers, arrays,
                                               spec.raw_weights):
-        if rec is None or tag not in ("conv", "gemm"):
+        if rec is None or tag not in ("conv", "gemm", "deconv"):
             if rec is not None:
                 raise ValueError(f"{name}: weightless layer got a record")
             if raw is not None:
@@ -393,9 +399,14 @@ def params_from_jax(arrays, spec: GraphSpec, *, device="cuda"):
             kernel, gemm = raw[0], tag == "gemm"
         else:
             kernel = None
-            gemm = tag == "gemm" or is_gemm_conv(
+            gemm = tag == "gemm" or (tag == "conv" and is_gemm_conv(
                 payload, int(_field(rec, "kernel_height")),
-                int(_field(rec, "kernel_width")))
-        out.append(packed_from_jax(name, rec, kernel, gemm=gemm,
-                                   groups=payload.groups, device=dev))
+                int(_field(rec, "kernel_width"))))
+        cs = payload[0] if tag == "deconv" else payload
+        packed = packed_from_jax(name, rec, kernel, gemm=gemm,
+                                 groups=cs.groups, device=dev)
+        if tag == "deconv":
+            deconv_plan(packed, cs.rparams, cs.strides, cs.padding,
+                        payload[1])
+        out.append(packed)
     return out

@@ -7,8 +7,7 @@ table): ResNet-18 (:642) / ResNet-50 (:668), SqueezeNet 1.0 (:539) / 1.1
 x0.5-x2.0 (:241-397) and VGG-16 (:720).  Each builder makes the same numpy
 RNG calls in the same order as its JAX builder.  All return (params, spec)
 with params on `device`; run with graph.graph_forward(params, spec, x) or
-graph.GraphModel.  Of the JAX zoo only ENet (models/enet.py) waits: it
-needs deconv (ROADMAP).
+graph.GraphModel.  ENet, the zoo's deconv model, is models/enet.py.
 """
 
 from __future__ import annotations

@@ -5,17 +5,19 @@ weights -> int32 accumulator with zero-point algebra -> fused
 requantization -> uint8.  `q8gemm` runs the CUDA kernel of
 kernels/q8gemm.py on GPU tensors and its plain version on CPU tensors;
 `q8bmm`, the activation x activation product of attention, runs the kernel
-of kernels/q8bmm.py the same way.
+of kernels/q8bmm.py the same way.  The row-sum pair `q8gemm_row_sums_out` /
+`q8gemm_presummed` runs the q8gemm kernel's producer and consumer
+instances: the producer also returns its output's row sums, which are
+exactly the kernel-zero-point term the next GEMM needs.
 
-Not carried over: the TPU routing (`gemm_path`, `q8gemm_routed`) and the
-row-sum producer/consumer pair (`q8gemm_row_sums_out`, `q8gemm_presummed`),
-which ROADMAP Queue 1 item 11 keeps queued.
+Not carried over: the TPU routing (`gemm_path`, `q8gemm_routed`).
 """
 
 from __future__ import annotations
 
 from ..kernels.q8bmm import bmm_acc_plain, q8bmm_cuda
-from ..kernels.q8gemm import gemm_acc_plain, q8gemm_cuda
+from ..kernels.q8gemm import (gemm_acc_plain, q8gemm_cuda,
+                              q8gemm_presummed_cuda, q8gemm_row_sums_cuda)
 from .packing import PackedGemmWeights
 
 
@@ -36,6 +38,29 @@ def q8gemm(a_u8, packed: PackedGemmWeights, rparams):
     lead = a_u8.shape[:-1]
     y = q8gemm_cuda(a_u8.reshape(-1, a_u8.shape[-1]).contiguous(), packed,
                     rparams)
+    return y.reshape(*lead, packed.n)
+
+
+def q8gemm_row_sums_out(a_u8, packed: PackedGemmWeights, rparams):
+    """Producer half of the row-sum pair: (y_u8 [..., N], row_sums int32
+    [...]) with row_sums[m] = sum_n (y[m, n] - 128), the biased row sums
+    that the next GEMM's kernel-zero-point term needs (the reference's
+    precompute, operator-run.c:711-768, one op earlier).  One q8gemm launch
+    writes both."""
+    lead = a_u8.shape[:-1]
+    y, rs = q8gemm_row_sums_cuda(
+        a_u8.reshape(-1, a_u8.shape[-1]).contiguous(), packed, rparams)
+    return y.reshape(*lead, packed.n), rs.reshape(lead)
+
+
+def q8gemm_presummed(a_u8, row_sums_i32, packed: PackedGemmWeights, rparams):
+    """Consumer half: the quantized GEMM with the kernel-zero-point row
+    sums given (q8gemm_row_sums_out's), bit-identical to q8gemm, since the
+    row-sum term is the same integer."""
+    lead = a_u8.shape[:-1]
+    y = q8gemm_presummed_cuda(
+        a_u8.reshape(-1, a_u8.shape[-1]).contiguous(),
+        row_sums_i32.reshape(-1).contiguous(), packed, rparams)
     return y.reshape(*lead, packed.n)
 
 

@@ -3,6 +3,7 @@
 One class per reference operator (create-call parity cited in each class):
 
     Convolution2D        qnnp_create_convolution2d_nhwc_q8
+    Deconvolution2D      qnnp_create_deconvolution2d_nhwc_q8
     FullyConnected       qnnp_create_fully_connected_nc_q8
     MaxPooling2D         qnnp_create_max_pooling2d_nhwc_u8
     AveragePooling2D     qnnp_create_average_pooling2d_nhwc_q8
@@ -16,11 +17,10 @@ One class per reference operator (create-call parity cited in each class):
 
 Construction == create (+ validation, packed weights and tables on the
 device; the GPU unless device="cpu"), call == run, `.delete()` == delete.
-Still to port (ROADMAP Queue 1 item 7, deconv): Deconvolution2D.
 """
 
 from .base import Operator  # noqa: F401
-from .convolution import Convolution2D  # noqa: F401
+from .convolution import Convolution2D, Deconvolution2D  # noqa: F401
 from .elementwise import (  # noqa: F401
     Add, ChannelShuffle, Clamp, LeakyReLU, Sigmoid, SoftArgMax,
 )

@@ -1,4 +1,4 @@
-"""Convolution operator: Convolution2D - a port of
+"""Convolution operators: Convolution2D and Deconvolution2D - a port of
 qnnpack_tpu/ops/convolution.py.
 
 Lifecycle and validation parity with src/convolution.c: the same messages
@@ -10,7 +10,8 @@ ukernel-type dispatch (convolution.c:180-189) picks the kernel:
   - "conv": every other conv runs nn/conv.py:q8conv2d, which routes a
     dense conv to q8stem or q8conv (nn/conv.py:dense_conv_route) and a
     grouped one to q8conv.
-Not ported yet: Deconvolution2D (ROADMAP Queue 1 item 7, deconv).
+Deconvolution2D (src/deconvolution.c) runs nn/conv.py:q8deconv2d on a
+plan built at create (nn/conv.py:deconv_plan), so a run only launches.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import math
 
 import torch
 
-from ..nn.conv import pack_conv_weights, q8conv2d
+from ..nn.conv import (deconv_lowering, deconv_output_dims, deconv_plan,
+                       pack_conv_weights, q8conv2d, q8deconv2d)
 from ..nn.gemm import q8gemm
 from ..nn.packing import as_tensor, pack_gemm_weights
 from ..nn.requant_dispatch import make_requant_params
@@ -153,3 +155,67 @@ class Convolution2D(Operator):
             return q8gemm(x, self.packed, self.rparams)
         return q8conv2d(x.contiguous(), self.packed, self.rparams,
                         self.strides, self.padding, self.dilation)
+
+
+class Deconvolution2D(Operator):
+    """Quantized transposed convolution (qnnp_create_deconvolution2d_nhwc_q8,
+    include/qnnpack.h:78-116; src/deconvolution.c:38-210).
+
+    kernel: uint8 [O, Kh, Kw, Icpg], O = groups * group_output_channels,
+    packed flipped (transposed) on the operator's device with its
+    DeconvPlan (nn/conv.py:deconv_lowering picks k == s, phase or dilated).
+    A padding larger than the dilated lowering's effective kernel raises
+    ValueError at the first run, as the JAX operator does."""
+
+    name = "deconvolution2d"
+    _tensors = ("packed",)
+
+    def __init__(self, *, kernel, bias, input_zero_point, input_scale,
+                 kernel_zero_point, kernel_scale, output_zero_point,
+                 output_scale, padding=((0, 0), (0, 0)), adjustment=(0, 0),
+                 strides=(1, 1), dilation=(1, 1), groups=1, output_min=0,
+                 output_max=255, requant="q31", device="cuda"):
+        kernel = as_tensor(kernel, torch.uint8)
+        o, kh, kw, icpg = kernel.shape
+        check(o % groups == 0,
+              f"failed to create deconvolution: {o} output channels do not "
+              f"divide into {groups} groups")
+        conv_scale = _validate_conv_args(
+            (kh, kw), strides, dilation, groups, icpg, o // groups,
+            input_scale, kernel_scale, output_scale, "deconvolution")
+        check_zero_point(output_zero_point, "output")
+        check_range(output_min, output_max)
+        super().__init__(device)
+        self.padding = tuple((int(a), int(b)) for a, b in padding)
+        self.adjustment = tuple(int(a) for a in adjustment)
+        self.strides = tuple(int(s) for s in strides)
+        self.dilation = tuple(int(d) for d in dilation)
+        self.kernel_size = (int(kh), int(kw))
+        self.rparams = make_requant_params(requant, conv_scale,
+                                           output_zero_point, output_min,
+                                           output_max)
+        self.packed = pack_conv_weights(kernel, bias, input_zero_point,
+                                        kernel_zero_point, groups,
+                                        transposed=True, device=self.device)
+        self.lowering = deconv_lowering(self.packed, self.strides,
+                                        self.padding, self.adjustment,
+                                        self.dilation)
+        if self.lowering != "unsupported":
+            deconv_plan(self.packed, self.rparams, self.strides,
+                        self.padding, self.adjustment, self.dilation)
+
+    def output_shape(self, input_shape):
+        b, h, w, c = input_shape
+        kh, kw = self.kernel_size
+        (pt, pb), (pl, pr) = self.padding
+        ho = deconv_output_dims(h, pt + pb, self.adjustment[0], kh,
+                                self.dilation[0], self.strides[0])
+        wo = deconv_output_dims(w, pl + pr, self.adjustment[1], kw,
+                                self.dilation[1], self.strides[1])
+        o = self.packed.groups * self.packed.group_output_channels
+        return (b, ho, wo, o)
+
+    def _forward(self, x):
+        return q8deconv2d(x.contiguous(), self.packed, self.rparams,
+                          self.strides, self.padding, self.adjustment,
+                          self.dilation)

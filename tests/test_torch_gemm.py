@@ -4,8 +4,10 @@ the q8gemm kernel's plain version against the XLA path and both Pallas
 GEMM kernels (run in interpret mode, as tests/test_kernels_pallas.py
 does); the packed fields the tensor-core kernel reads (K-major weights and
 the raw-uint8 bias) and the sum it forms from them, whole and split over
-K; the wrapper's block-shape and split-K plan.  Inputs come from a numpy
-seed; comparisons are exact."""
+K; the wrapper's block-shape and split-K plan; the row-sum pair
+(q8gemm_row_sums_out -> q8gemm_presummed) chained as tests/test_q8gemm.py
+chains it, and the consumer kernel's sum from the given row sums.  Inputs
+come from a numpy seed; comparisons are exact."""
 
 import numpy as np
 import pytest
@@ -273,3 +275,100 @@ def test_split_counters_are_per_stream(blocks, monkeypatch):
     assert tq8gemm._split_counters(dev, 0x1000, blocks) is first
     assert tq8gemm._split_counters("cpu", 0x2000, 1) is second
     assert len(tq8gemm._counters) == 2
+
+
+ROW_SUM_ZPS = [((121, 103), (117, 99)), ((128, 128), (128, 128)),
+               ((128, 103), (128, 255))]
+
+
+@pytest.mark.parametrize("scheme", ["fp32", "q31"])
+@pytest.mark.parametrize("zps", ROW_SUM_ZPS, ids=["kzp_ne_128", "kzp_128",
+                                                  "mixed"])
+@pytest.mark.parametrize("m,k,n", [(17, 33, 29), (1, 1, 1), (40, 130, 257),
+                                   (64, 64, 16)])
+def test_row_sum_chain_matches_jax(m, k, n, zps, scheme):
+    """The producer's y and row sums, then the consumer on them, each
+    equal to the JAX pair and to plain chained q8gemm."""
+    (izp1, kzp1), (izp2, kzp2) = zps
+    x = u8(m, k)
+    w1, w2 = u8(k, k), u8(n, k)
+    rp1 = (jmake(scheme, 0.004, izp2), tmake(scheme, 0.004, izp2))
+    rp2 = (jmake(scheme, 0.003, 121), tmake(scheme, 0.003, 121))
+    jp1 = jpacking.pack_gemm_weights(w1, None, izp1, kzp1)
+    jp2 = jpacking.pack_gemm_weights(w2, None, izp2, kzp2)
+    tp1 = tpacking.pack_gemm_weights(w1, None, izp1, kzp1)
+    tp2 = tpacking.pack_gemm_weights(w2, None, izp2, kzp2)
+    ja, jrs = jgemm.q8gemm_row_sums_out(jnp.asarray(x), jp1, rp1[0])
+    tkernels.reset_launch_counts()
+    ta, trs = tgemm.q8gemm_row_sums_out(torch.from_numpy(x), tp1, rp1[1])
+    assert ta.dtype == torch.uint8 and trs.dtype == torch.int32
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(trs.numpy(), np.asarray(jrs))
+    np.testing.assert_array_equal(
+        trs.numpy(), ta.numpy().astype(np.int64).sum(-1) - 128 * k)
+    got = tgemm.q8gemm_presummed(ta, trs, tp2, rp2[1])
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jgemm.q8gemm_presummed(ja, jrs, jp2,
+                                                       rp2[0])))
+    np.testing.assert_array_equal(got.numpy(),
+                                  tgemm.q8gemm(ta, tp2, rp2[1]).numpy())
+    assert set(tkernels.launch_counts().values()) == {0}
+
+
+def test_row_sum_pair_keeps_leading_axes():
+    x = u8(2, 3, 40)
+    tp1 = tpacking.pack_gemm_weights(u8(24, 40), None, 121, 103)
+    tp2 = tpacking.pack_gemm_weights(u8(8, 24), None, 117, 99)
+    rp = tmake("fp32", 0.004, 117)
+    y, rs = tgemm.q8gemm_row_sums_out(torch.from_numpy(x), tp1, rp)
+    assert tuple(y.shape) == (2, 3, 24) and tuple(rs.shape) == (2, 3)
+    got = tgemm.q8gemm_presummed(y, rs, tp2, rp)
+    np.testing.assert_array_equal(got.numpy(),
+                                  tgemm.q8gemm(y, tp2, rp).numpy())
+
+
+@pytest.mark.parametrize("kzp", [103, 128, 255])
+def test_consumer_takes_any_row_sums_as_jax(kzp):
+    """The consumer applies the given sums, whatever they are (JAX's
+    q8gemm_presummed does not check them)."""
+    a = u8(9, 70)
+    rs = RNG.integers(-2**31, 2**31, 9, dtype=np.int64).astype(np.int32)
+    jp, tp = make_weights(11, 70, 121, kzp)
+    jr, tr = requant_pair("q31", 11)
+    want = np.asarray(jgemm.q8gemm_presummed(jnp.asarray(a), jnp.asarray(rs),
+                                             jp, jr))
+    got = tgemm.q8gemm_presummed(torch.from_numpy(a), torch.from_numpy(rs),
+                                 tp, tr)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kzp", [103, 128, 0])
+@pytest.mark.parametrize("m,k,n", [(17, 33, 29), (5, 130, 3)])
+def test_consumer_kernel_sum_from_given_row_sums(m, k, n, kzp):
+    """What the consumer instance computes: the product of raw A by the
+    K-major weights, + c, - kzp' * (rs + 128 K) with the true K, mod 2^32,
+    equals the reference accumulator (the raw sum A is rs + 128 K; the
+    zeros past K add nothing)."""
+    _, tp = make_weights(n, k, 121, kzp)
+    a = u8(m, k)
+    rs = a.astype(np.int64).sum(-1) - 128 * k
+    wk = tp.w_kmajor.numpy().astype(np.int64)
+    a64 = np.zeros((m, wk.shape[1]), np.int64)
+    a64[:, :k] = a
+    acc = (a64 @ wk.T + tp.bias_c.numpy().astype(np.int64)
+           - tp.kzp_biased * (rs + 128 * k)[:, None])
+    acc = ((acc + 2**31) & 0xFFFFFFFF) - 2**31
+    np.testing.assert_array_equal(acc, kmajor_acc(a, tp))
+    np.testing.assert_array_equal(
+        acc, tgemm.q8gemm_acc(torch.from_numpy(a), tp).numpy())
+
+
+def test_row_sum_wrappers_check_their_operands():
+    tp = tpacking.pack_gemm_weights(u8(8, 16), None, 121, 103)
+    rp = tmake("fp32", 0.01, 128)
+    a = torch.from_numpy(u8(4, 16))
+    with pytest.raises(ValueError, match="K = 16"):
+        tq8gemm.q8gemm_row_sums_cuda(a[:, :8], tp, rp)
+    with pytest.raises(ValueError, match="row sums"):
+        tq8gemm.q8gemm_presummed_cuda(a, torch.zeros(3, dtype=torch.int32),
+                                      tp, rp)

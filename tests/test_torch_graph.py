@@ -5,7 +5,11 @@
   the JAX graph_forward's bytes, under q31 and fp32 requant.
 - A small graph with the lut and softargmax tags (and the builder's
   softargmax) gives the JAX graph_forward's bytes.
-- The unported tag and builder method (deconv) raise NotImplementedError.
+- ENet (models/enet.py, the deconv model) at 32x32 gives the JAX
+  graph_forward's bytes through the port's builder, through
+  params_from_jax, and after a save_params / load_params round trip (with
+  the spec, and without it, where the first forward builds each deconv
+  plan); so does a graph of deconvs at every lowering, with kzp != 128.
 - ResNet-18 at full width (32x32, batch 2) and SqueezeNet 1.1 (64x64) give
   the JAX forward's logits, through the port's builder and through
   params_from_jax; the ResNet-18 entry point at 224 does too, and the
@@ -32,6 +36,7 @@ from qnnpack_tpu_torch import kernels as tkernels
 from qnnpack_tpu_torch.entry import entry
 from qnnpack_tpu_torch.models import graph as tgraph
 from qnnpack_tpu_torch.models import zoo as tzoo
+from qnnpack_tpu_torch.nn.packing import PackedGemmWeights
 from qnnpack_tpu_torch.serving import InferenceServer
 
 
@@ -50,7 +55,10 @@ def assert_same_spec(jspec, tspec):
     assert len(jspec.layers) == len(tspec.layers)
     for (jt, jn, jl), (tt, tn, tl) in zip(jspec.layers, tspec.layers):
         assert (jt, jn) == (tt, tn)
-        if jt in ("conv", "gemm"):
+        if jt == "deconv":
+            assert jl[1] == tl[1]
+            jl, tl = jl[0], tl[0]
+        if jt in ("conv", "gemm", "deconv"):
             assert (jl.kind, jl.strides, jl.padding, jl.groups) == \
                 (tl.kind, tl.strides, tl.padding, tl.groups)
             assert dataclasses.asdict(jl.rparams) == \
@@ -168,21 +176,115 @@ def test_lut_and_softargmax_tags_match_jax(requant):
     assert set(tkernels.launch_counts().values()) == {0}
 
 
-@pytest.mark.parametrize("tag", sorted(tgraph.NOT_PORTED))
-def test_unported_tags_raise(tag):
-    g = tgraph.GraphBuilder(np.random.default_rng(0), device="cpu")
-    g._emit(tag, tag, None)
-    _, spec = g.finish()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgraph.graph_forward([None], spec, torch.zeros(1, 4, 4, 8,
-                                                       dtype=torch.uint8))
+def deconv_graph(builder_cls, rng, requant, **kw):
+    """Deconvs at each lowering (k == s grouped, phases with padding and
+    adjustment, k < s, stride 1): 2x5x5x8 in."""
+    g = builder_cls(rng, requant, **kw)
+    g.deconv("up_g", 8, 12, groups=2)                          # k == s
+    g.deconv("up_pad", 12, 8, kernel=(3, 3), strides=(2, 2),
+             padding=((1, 1), (1, 1)), adjustment=(1, 1))      # phase
+    g.deconv("up_klt", 8, 4, kernel=(2, 2), strides=(3, 3))    # k < s
+    g.deconv("same", 4, 4, kernel=(3, 3), strides=(1, 1),
+             padding=((1, 1), (1, 1)), act="linear")           # dilated
+    return g.finish(name="deconvs")
 
 
-@pytest.mark.parametrize("method", ["deconv"])
-def test_unported_builder_methods_raise(method):
-    g = tgraph.GraphBuilder(np.random.default_rng(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(g, method)("x", 8, 8)
+@pytest.mark.parametrize("requant", ["q31", "fp32"])
+def test_deconv_tag_matches_jax(requant):
+    jp, js = deconv_graph(jgraph.GraphBuilder, np.random.default_rng(41),
+                          requant)
+    tp, ts = deconv_graph(tgraph.GraphBuilder, np.random.default_rng(41),
+                          requant, device="cpu")
+    assert_same_spec(js, ts)
+    # Each builder record holds the plan of its layer's geometry.
+    assert [len(p.deconv_plans) for p in tp] == [1, 1, 1, 1]
+    x = images(42, (2, 5, 5, 8))
+    want = jax_forward(jp, js, x)
+    got = tgraph.graph_forward(tp, ts, torch.from_numpy(x))
+    assert tuple(got.shape) == want.shape == (2, 59, 59, 4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    tp2 = tgraph.params_from_jax(jax.tree.map(np.asarray, jp), ts,
+                                 device="cpu")
+    assert [len(p.deconv_plans) for p in tp2] == [1, 1, 1, 1]
+    np.testing.assert_array_equal(
+        tgraph.graph_forward(tp2, ts, torch.from_numpy(x)).numpy(), want)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_enet(seed):
+    from qnnpack_tpu.models.enet import enet_seg
+    return enet_seg(np.random.default_rng(seed), input_size=32)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_enet_output(seed, x_seed):
+    jp, js = jax_enet(seed)
+    return jax_forward(jp, js, images(x_seed, (2, 32, 32, 3)))
+
+
+@pytest.mark.parametrize("weights", ["own_builder", "params_from_jax",
+                                     "checkpoint_with_spec",
+                                     "checkpoint_without_spec",
+                                     "jax_checkpoint"])
+def test_enet_matches_jax(weights, tmp_path):
+    from qnnpack_tpu.utils import checkpoint as jckpt
+    from qnnpack_tpu_torch.models.enet import enet_seg
+    from qnnpack_tpu_torch.utils import checkpoint as tckpt
+    jp, js = jax_enet(13)
+    tp, ts = enet_seg(np.random.default_rng(13), input_size=32,
+                      device="cpu")
+    assert_same_spec(js, ts)
+    path = str(tmp_path / "enet.npz")
+    if weights == "params_from_jax":
+        tp = tgraph.params_from_jax(jax.tree.map(np.asarray, jp), ts,
+                                    device="cpu")
+    elif weights == "checkpoint_with_spec":
+        tckpt.save_params(path, tp, ts)
+        tp = tckpt.load_params(path, device="cpu", spec=ts)
+    elif weights == "checkpoint_without_spec":
+        tckpt.save_params(path, tp, ts)
+        tp = tckpt.load_params(path, device="cpu")
+    elif weights == "jax_checkpoint":
+        jckpt.save_params(path, jp)
+        tp = tckpt.load_params(path, device="cpu", spec=ts)
+    deconvs = [p for (tag, _, _), p in zip(ts.layers, tp) if tag == "deconv"]
+    assert len(deconvs) == 3
+    # A checkpoint keeps no geometry: with the spec, loading builds each
+    # deconv plan; without it, the first forward does.
+    assert {len(p.deconv_plans) for p in deconvs} == (
+        {0} if weights == "checkpoint_without_spec" else {1})
+    got = tgraph.graph_forward(tp, ts, torch.from_numpy(images(14, (
+        2, 32, 32, 3))))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (2, 32, 32, 12)
+    np.testing.assert_array_equal(got.numpy(), jax_enet_output(13, 14))
+    assert {len(p.deconv_plans) for p in deconvs} == {1}
+    for p in deconvs:
+        plan = next(iter(p.deconv_plans.values()))
+        assert plan.lowering == "k_eq_s"
+        assert isinstance(plan.record, PackedGemmWeights)
+
+
+def test_enet_layers_and_kernels():
+    """One forward: the stem on q8stem, 11 convs on q8conv, 16 1x1 convs
+    and the 3 k == s deconvs on q8gemm, 7 adds on q8vadd."""
+    from qnnpack_tpu_torch.models.enet import enet_seg
+    from qnnpack_tpu_torch.nn.conv import dense_conv_route
+    tp, ts = enet_seg(np.random.default_rng(13), input_size=32, device="cpu")
+    routes = []
+    for (tag, _, payload), p in zip(ts.layers, tp):
+        if tag == "conv":
+            routes.append(dense_conv_route(p, payload.strides))
+        elif tag in ("gemm", "deconv", "add"):
+            routes.append({"gemm": "q8gemm", "deconv": "q8gemm",
+                           "add": "q8vadd"}[tag])
+    assert {r: routes.count(r) for r in set(routes)} == {
+        "q8stem": 1, "q8conv": 11, "q8gemm": 19, "q8vadd": 7}
+
+
+def test_enet_entry_input_and_output_shape():
+    from qnnpack_tpu_torch.entry import MODELS, input_shape
+    assert "enet_seg" in MODELS
+    assert input_shape("enet_seg") == (256, 256, 3)
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,6 +12,12 @@
 - each rejection of tests/test_ops.py (and of the shared checks of scale,
   zero point and range) raises the same exception type with the same
   message and status code;
+- Deconvolution2D at each lowering (k == s with and without groups, the
+  phases with padding and adjustment, k < s, a depthwise deconv, stride 1,
+  dilation 2, stride 2 with dilation 2), zero points (121, 103) and
+  (128, 128), every requant scheme: the JAX operator's bytes and output
+  shape; its create rejections, and the padding its dilated lowering
+  refuses at the first run;
 - create takes a device, the GPU by default (tests/test_torch_port_rules
   .py checks that it raises without one); a deleted operator refuses to
   run.
@@ -352,6 +358,117 @@ def test_global_average_pooling_binds_each_width():
         assert (dataclasses.astuple(top._params_for_width(width))
                 == dataclasses.astuple(jop._params_for_width(width)))
     assert sorted(top._width_cache) == [7, 49, 300]
+
+
+# Deconvolution2D takes Convolution2D's create kwargs (conv()) plus its
+# adjustment.
+deconv = conv
+S2 = dict(strides=(2, 2))
+# (create kwargs, input shape) of Deconvolution2D
+DECONV = [
+    # k == s: one GEMM (groups 1) or grouped 1x1 conv, depth-to-space
+    *[(deconv(16, 2, 2, 8, requant=r, **S2), (2, 5, 6, 8))
+      for r in ("q31", "fp32")],
+    *[(deconv(16, 2, 2, 8, izp=128, kzp=128, requant=r, **S2),
+       (2, 5, 6, 8)) for r in ("q31", "fp32")],
+    (deconv(12, 2, 2, 4, groups=2, requant="fp32", **S2), (1, 4, 5, 8)),
+    (deconv(9, 3, 3, 4, requant="gemmlowp", strides=(3, 3)), (1, 3, 4, 4)),
+    # phases: padding and adjustment, k < s, asymmetric, depthwise
+    *[(deconv(8, 3, 3, 8, padding=P1, adjustment=(1, 1), requant=r, **S2),
+       (1, 5, 5, 8)) for r in SCHEMES],
+    (deconv(8, 3, 3, 8, izp=128, kzp=128, padding=P1, adjustment=(1, 1),
+            **S2), (1, 5, 5, 8)),
+    (deconv(8, 2, 2, 4, requant="fp32", strides=(3, 3)), (1, 4, 5, 4)),
+    (deconv(6, 3, 3, 4, strides=(3, 2), padding=((1, 1), (0, 1)),
+            adjustment=(1, 0), requant="precise"), (2, 5, 4, 4)),
+    (deconv(8, 3, 3, 1, groups=8, padding=P1, output_min=30,
+            output_max=220, **S2), (1, 5, 5, 8)),
+    (deconv(12, 3, 3, 4, groups=2, padding=P1, adjustment=(1, 1), **S2),
+     (1, 4, 4, 8)),
+    # dilated: stride 1, dilation 2, stride 2 with dilation 2
+    *[(deconv(4, 3, 3, 4, padding=P1, requant=r), (1, 6, 6, 4))
+      for r in ("q31", "fp32")],
+    (deconv(4, 3, 3, 4, dilation=(2, 2), padding=((2, 2), (2, 2))),
+     (1, 5, 5, 4)),
+    (deconv(4, 3, 3, 4, dilation=(2, 2), requant="fp32", **S2),
+     (1, 4, 4, 4)),
+    # tests/test_ops.py's lifecycle case
+    (deconv(8, 3, 3, 8, izp=120, kzp=110, ozp=128, padding=P1,
+            adjustment=(1, 1), **S2), (1, 5, 5, 8)),
+]
+
+
+@pytest.mark.parametrize("kwargs,shape", DECONV,
+                         ids=[str(i) for i in range(len(DECONV))])
+def test_deconvolution_matches_jax(kwargs, shape):
+    x = u8(*shape)
+    jop = jops.Deconvolution2D(**kwargs)
+    want = np.asarray(jop(jnp.asarray(x)))
+    top = tops.Deconvolution2D(**kwargs, device="cpu")
+    assert top.output_shape(shape) == jop.output_shape(shape) == want.shape
+    # The plan is built at create, so a run only launches.
+    assert len(top.packed.deconv_plans) == 1
+    tkernels.reset_launch_counts()
+    got = top(torch.from_numpy(x))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert set(tkernels.launch_counts().values()) == {0}
+    assert len(top.packed.deconv_plans) == 1
+
+
+def test_deconvolution_lowerings():
+    kinds = [tops.Deconvolution2D(**kw, device="cpu").lowering
+             for kw, _ in DECONV]
+    assert {k: kinds.count(k) for k in set(kinds)} == {
+        "k_eq_s": 6, "phase": 10, "dilated": 4}
+
+
+DECONV_REJECTED = [
+    deconv(8, 3, 3, 4, groups=3),
+    dict(deconv(8, 3, 3, 4), kernel=np.zeros((8, 0, 3, 4), np.uint8)),
+    deconv(8, 3, 3, 4, strides=(0, 2)),
+    deconv(8, 3, 3, 4, dilation=(1, 0)),
+    dict(deconv(8, 3, 3, 4), input_scale=2.0, kernel_scale=2.0,
+         output_scale=1.0),
+    dict(deconv(8, 3, 3, 4), output_scale=float("nan")),
+    deconv(8, 3, 3, 4, ozp=256),
+    deconv(8, 3, 3, 4, output_min=9, output_max=3),
+]
+
+
+@pytest.mark.parametrize("kwargs", DECONV_REJECTED,
+                         ids=[str(i) for i in range(len(DECONV_REJECTED))])
+def test_deconvolution_rejection_matches_jax(kwargs):
+    with pytest.raises(Exception) as jerr:
+        jops.Deconvolution2D(**kwargs)
+    with pytest.raises(tstatus.QnnpackError) as terr:
+        tops.Deconvolution2D(**kwargs, device="cpu")
+    assert type(terr.value).__name__ == type(jerr.value).__name__
+    assert str(terr.value) == str(jerr.value)
+    assert int(terr.value.status) == int(jerr.value.status)
+
+
+def test_deconvolution_padding_past_the_kernel_raises_at_run_as_jax():
+    kwargs = deconv(4, 3, 3, 4, padding=((3, 0), (0, 0)))
+    x = u8(1, 5, 5, 4)
+    jop = jops.Deconvolution2D(**kwargs)
+    with pytest.raises(ValueError) as jerr:
+        jop(jnp.asarray(x))
+    top = tops.Deconvolution2D(**kwargs, device="cpu")
+    assert top.lowering == "unsupported"
+    with pytest.raises(ValueError) as terr:
+        top(torch.from_numpy(x))
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_deleted_deconvolution_refuses_to_run():
+    op = tops.Deconvolution2D(**deconv(8, 2, 2, 4, **S2), device="cpu")
+    x = torch.from_numpy(u8(1, 3, 3, 4))
+    op(x)
+    op.delete()
+    assert op.packed is None
+    with pytest.raises(tstatus.UninitializedError, match="deleted"):
+        op(x)
 
 
 CONV_SHAPES = [  # (case index in CASES, input shape) of each kernel type

@@ -122,6 +122,14 @@ def test_shufflenet_entry_and_zoo_raise_without_gpu(no_gpu):
             builder(np.random.default_rng(0))
 
 
+def test_enet_entry_and_builder_raise_without_gpu(no_gpu):
+    from qnnpack_tpu_torch.models.enet import enet_seg
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        entry(model="enet_seg")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        enet_seg(np.random.default_rng(0))
+
+
 def test_bert_entry_and_builder_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         entry(model="bert_base_s128")
@@ -144,6 +152,11 @@ def test_bert_entry_and_builder_raise_without_gpu(no_gpu):
                            input_zero_point=0, input_scale=0.1,
                            kernel_zero_point=0, kernel_scale=0.1,
                            output_zero_point=0, output_scale=1.0)),
+    ("Deconvolution2D", dict(kernel=np.zeros((4, 2, 2, 2), np.uint8),
+                             bias=None, input_zero_point=0, input_scale=0.1,
+                             kernel_zero_point=0, kernel_scale=0.1,
+                             output_zero_point=0, output_scale=1.0,
+                             strides=(2, 2))),
     ("FullyConnected", dict(kernel=np.zeros((4, 2), np.uint8), bias=None,
                             input_zero_point=0, input_scale=0.1,
                             kernel_zero_point=0, kernel_scale=0.1,
