@@ -15,7 +15,7 @@ squeezenet_v11_int8.tflite) through qnnpack_tpu_torch.io.import_tflite
 and the graph runtime.  Phases, each of which raises on any failure:
 
   1. print the card (nvidia-smi name and power limit) and versions, build
-     the twelve CUDA kernels from qnnpack_tpu_torch/kernels/csrc/;
+     the thirteen CUDA kernel sources from qnnpack_tpu_torch/kernels/csrc/;
   2. hold every kernel against its plain PyTorch version, run on CPU copies
      of the same inputs, at the main paths' shapes plus kzp != 128, q31,
      precise, gemmlowp, per-channel, ragged-channel, odd-size, grouped
@@ -163,16 +163,41 @@ and the graph runtime.  Phases, each of which raises on any failure:
      dispatch_overhead() and a measure_loop of MobileNetV2's b128
      classifier q8gemm beside its phase-8 time; InferenceServer.warmup()
      captures every bucket, and phase 5's requests must then get the same
-     answers with no launch; HealthMonitor.probe_once() on the card.
+     answers with no launch; HealthMonitor.probe_once() on the card;
+  10. the parallel layer (qnnpack_tpu_torch.parallel, check_parallel):
+     the partial instances of q8gemm.cu and q8conv.cu (int32 sum_k A W' -
+     kzp' sum_k A, no bias, no requantization) against their plain
+     versions at every block shape and split-K plan, K = 70,000 with sums
+     past +-2^31, kzp 128 and != 128, izp taps; q8requant against its
+     plain version under the five schemes at N = 1,280, odd N and a base
+     4 bytes off 16, with wrapping biases; the shard arithmetic of
+     gemm_kdim_tp and conv_ic_tp for n = 2 and 4 on one card (each
+     slice's partial launch, summed in int32 on the card, then q8requant)
+     equal to unsharded q8gemm and q8conv at MobileNetV2's b128 head
+     (6272x320->1280) and ResNet-18's 3x3 256->256 conv at 14x14, b128;
+     then on a one-rank NCCL mesh (make_mesh(device="cuda")):
+     MobileNetV2 1.0_224 b128 through shard_params + sharded_inference_fn
+     + batch_sharding equal to entry's forward, gemm_kdim_tp and
+     conv_ic_tp at those shapes (kzp 128 and 103), spatial_conv2d,
+     pipeline_apply and grouped_conv2d_ep equal to their unsharded
+     products; one run of the main path (the sharded forward,
+     gemm_kdim_tp, conv_ic_tp; counts set to 0 just before) must launch
+     PARALLEL_LAUNCHES.  Timed: each partial instance beside its plain
+     kernel in turns, with its bound, plain version and _int_mm; q8requant
+     against its bound by bytes; the sharded forward against entry's,
+     eager and captured.  The process group is destroyed at the end (no
+     phase forks after it).
 
 Prints the {"kernels": [...]} line (launches over one batch-1 forward of
 each path, launches_by_path beside them; times summed over one batch-128
 forward of each of the five entry models; u8clamp's over the lifecycle run
-and the 128x56x56x96 tensor), the nvidia-smi line
+and the 128x56x56x96 tensor; the partial instances' and q8requant's over
+phase 10's main path at b128), the nvidia-smi line
 and, last, {"ok": true, "device": {...}}.  Per-shape timings, nvcc's time,
 the ptxas lines, phase 9's numbers (forward[model]: b1_graph_ms,
 b128_graph_ms, ...; timing), the row-sum pair's times (row_sums) and the
-deconv lowerings' (deconv_ops) go to chiprun_out/chip_smoke.json.  The
+deconv lowerings' (deconv_ops) and phase 10's (parallel) go to
+chiprun_out/chip_smoke.json.  The
 bounds divide by the card's data-sheet peaks from config.tune_params().
 """
 
@@ -193,7 +218,8 @@ HBM_BYTES_PER_S = None
 INT8_OPS_PER_S = None
 KERNEL_NAMES = ("q8gemm", "q8dwconv", "q8vadd", "q8gavgpool", "q8conv",
                 "q8stem", "u8maxpool", "q8avgpool", "q8bmm", "u8rmax",
-                "u8lut32norm", "u8clamp")
+                "u8lut32norm", "u8clamp", "q8gemm_partial", "q8conv_partial",
+                "q8requant")
 
 
 def _counts(**nonzero):
@@ -266,6 +292,14 @@ SOURCES = {
                     "qnnpack_tpu/nn/elementwise.py:207"),
     "u8clamp": ("qnnpack_tpu_torch/kernels/csrc/u8clamp.cu",
                 "qnnpack_tpu/kernels/vpu_ops.py:105"),
+    # The partial instances and q8requant replace the XLA bodies of the JAX
+    # package's K- and input-channel-sharded TP (no Pallas form).
+    "q8gemm_partial": ("qnnpack_tpu_torch/kernels/csrc/q8gemm.cu",
+                       "qnnpack_tpu/parallel/mesh.py:153"),
+    "q8conv_partial": ("qnnpack_tpu_torch/kernels/csrc/q8conv.cu",
+                       "qnnpack_tpu/parallel/mesh.py:200"),
+    "q8requant": ("qnnpack_tpu_torch/kernels/csrc/q8requant.cu",
+                  "qnnpack_tpu/parallel/mesh.py:160"),
 }
 
 
@@ -2566,6 +2600,377 @@ def check_measure_loop(torch, models, per_shape, rng):
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------ phase 10: parallel layer
+# One run of phase 10's main path: the one-rank NCCL mesh's MobileNetV2
+# b128 forward (shard_params + sharded_inference_fn), gemm_kdim_tp at the
+# MobileNetV2 head's b128 shape and conv_ic_tp at ResNet-18's 3x3 256->256
+# conv at 14x14, b128.
+PARALLEL_LAUNCHES = _counts(q8gemm=35, q8stem=1, q8dwconv=17, q8vadd=10,
+                            q8gavgpool=1, q8gemm_partial=1, q8conv_partial=1,
+                            q8requant=2)
+HEAD = (128 * 7 * 7, 320, 1280)  # M, K, N of MobileNetV2's b128 head
+RESNET_CONV = (128, 14, 14, 256, 256)  # B, H, W, C, O of a 3x3 s1 pad 1
+
+
+def partial_plan(name, packed, m, sms):
+    if name == "q8gemm_partial":
+        return gemm_plan(m, packed.n, packed.k, 1, sms)
+    return conv_plan(packed, m, sms)
+
+
+def check_partials(torch, err, u8, sms):
+    """q8gemm's and q8conv's partial instances against their plain versions
+    (int32, torch.equal) at every block shape and split-K plan, K = 70,000
+    with sums past +-2^31, kzp 128 and != 128, bases 8 bytes off 16, izp
+    taps; q8requant under the five schemes at N = 1,280 (16-byte loads),
+    odd N and a base 4 bytes off 16 (one element a thread), with biases
+    that wrap the sum."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.kernels._build import out_dims
+    from qnnpack_tpu_torch.nn.conv import pack_conv_weights
+    from qnnpack_tpu_torch.nn.packing import pack_gemm_weights
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+    from qnnpack_tpu_torch.quant.params import compute_per_channel_fp32_params
+
+    cuda = torch.device("cuda")
+    plans = set()
+
+    def placed(x, offset):
+        buf = torch.empty(x.numel() * x.element_size() + offset,
+                          dtype=torch.uint8, device=cuda)
+        view = buf[offset:].view(x.dtype).view(x.shape)
+        view.copy_(x)
+        return view
+
+    # (label, M, K, N, izp, kzp, base offset)
+    for label, m, k, n, izp, kzp, off in [
+            ("head b128 6272x320->1280", *HEAD, 128, 128, 0),
+            ("head b128 kzp 103", *HEAD, 121, 103, 0),
+            ("head K/4 6272x80->1280 kzp 103", 6272, 80, 1280, 121, 103, 0),
+            ("head b1 49x320->1280 kzp 103", 49, 320, 1280, 121, 103, 0),
+            ("20000x64->64 kzp 90", 20000, 64, 64, 7, 90, 0),
+            ("bert out 16384x768->768", 16384, 768, 768, 128, 128, 0),
+            ("128x3072->768 kzp 200 (split-K)", 128, 3072, 768, 250, 200, 0),
+            ("ragged 67x961->65 kzp 77", 67, 961, 65, 3, 77, 0),
+            ("base + 8 bytes 500x144->96 kzp 103", 500, 144, 96, 121, 103,
+             8)]:
+        kernel, a = u8(n, k), torch.from_numpy(u8(m, k))
+        packed = pack_gemm_weights(kernel, None, izp, kzp)
+        want = K.q8gemm_partial_cuda(a, packed)
+        got = K.q8gemm_partial_cuda(placed(a.to(cuda), off) if off else
+                                    a.to(cuda), pack_gemm_weights(
+                                        kernel, None, izp, kzp, device=cuda))
+        plan = gemm_plan(m, n, k, 1, sms)
+        plans.add(("q8gemm_partial", plan[0], plan[1] > 1))
+        compare(torch, err, "q8gemm_partial", f"{label} {plan_tag(plan)}",
+                got, want)
+    # K = 70,000 at the extremes: every column's sum passes +-2^31.
+    m, k, n = 1088, 70000, 256
+    kernel = np.zeros((n, k), np.uint8)
+    kernel[1::2] = 255
+    a = torch.full((m, k), 255, dtype=torch.uint8)
+    a[1::3] = torch.from_numpy(u8(len(range(1, m, 3)), k))
+    for kzp in (0, 128):
+        plan = gemm_plan(m, n, k, 1, sms)
+        compare(torch, err, "q8gemm_partial",
+                f"K=70000 kzp {kzp} extremes, wrap {plan_tag(plan)}",
+                K.q8gemm_partial_cuda(a.to(cuda), pack_gemm_weights(
+                    kernel, None, 255, kzp, device=cuda)),
+                K.q8gemm_partial_cuda(a, pack_gemm_weights(kernel, None, 255,
+                                                           kzp)))
+    del a, kernel
+
+    p1, s2 = ((1, 1), (1, 1)), ((0, 1), (0, 1))
+    # (label, B, H, W, C, O, k, stride, padding, dilation, izp, kzp)
+    for (label, bsz, h, w, c, o, k, s, pad, d, izp, kzp) in [
+            ("resnet b128 3x3 14x14x256->256", *RESNET_CONV[:3], 256, 256, 3,
+             1, p1, 1, 128, 128),
+            ("resnet b128 kzp 103 izp 121", *RESNET_CONV[:3], 256, 256, 3, 1,
+             p1, 1, 121, 103),
+            ("resnet C/4 14x14x64->256 kzp 103", *RESNET_CONV[:3], 64, 256,
+             3, 1, p1, 1, 121, 103),
+            ("b32 3x3 28x28x64->64 kzp 90", 32, 28, 28, 64, 64, 3, 1, p1, 1,
+             7, 90),
+            ("7x7x512 kzp 90 (split-K)", 1, 7, 7, 512, 512, 3, 1, p1, 1, 121,
+             90),
+            ("1x1 s2 56x56x64->128 kzp 103", 1, 56, 56, 64, 128, 1, 2,
+             ((0, 0), (0, 0)), 1, 121, 103),
+            ("izp 121 kzp 103 13x11x24->40", 2, 13, 11, 24, 40, 3, 1, p1, 1,
+             121, 103),
+            ("C=5 s2 pad (0,1) kzp 90", 3, 9, 7, 5, 70, 3, 2, s2, 1, 7, 90),
+            ("dil 2 12x10x16->33 kzp 200", 1, 12, 10, 16, 33, 3, 1,
+             ((2, 2), (2, 2)), 2, 250, 200)]:
+        kernel, a = u8(o, k, k, c), torch.from_numpy(u8(bsz, h, w, c))
+        args = dict(strides=(s, s), padding=pad, dilation=(d, d))
+        packed = pack_conv_weights(kernel, None, izp, kzp)
+        ho, wo = out_dims(h, w, k, k, (s, s), pad, (d, d))
+        plan = conv_plan(packed, bsz * ho * wo, sms)
+        plans.add(("q8conv_partial", plan[0], plan[1] > 1))
+        compare(torch, err, "q8conv_partial", f"{label} {plan_tag(plan)}",
+                K.q8conv_partial_cuda(a.to(cuda), pack_conv_weights(
+                    kernel, None, izp, kzp, device=cuda), **args),
+                K.q8conv_partial_cuda(a, packed, **args))
+    want_plans = {(name, tile, tile == 2 and split)
+                  for name in ("q8gemm_partial", "q8conv_partial")
+                  for tile in range(4) for split in (False, True)}
+    if not want_plans <= plans:
+        raise AssertionError(f"plans not covered: {want_plans - plans}")
+
+    rng = np.random.default_rng(77)
+    for scheme in ("q31", "fp32", "precise", "gemmlowp", "pc"):
+        for m, n, off in ((6272, 1280, 0), (33, 37, 0), (64, 1280, 4)):
+            acc = torch.from_numpy(rng.integers(
+                -2**31, 2**31, (m, n), dtype=np.int64).astype(np.int32))
+            bias = torch.from_numpy(rng.integers(
+                -2**31, 2**31, n, dtype=np.int64).astype(np.int32))
+            acc[0] = 2**31 - 5
+            bias[:4] = torch.tensor([2**31 - 1, -2**31, 7, -9])
+            rp = (compute_per_channel_fp32_params(
+                rng.uniform(1e-9, 1e-8, n), 117) if scheme == "pc" else
+                make_requant_params(scheme, 3e-9, 117))
+            compare(torch, err, "q8requant",
+                    f"{scheme} {m}x{n}" + (f" base + {off}" if off else ""),
+                    K.q8requant_cuda(placed(acc.to(cuda), off) if off else
+                                     acc.to(cuda), bias.to(cuda), rp),
+                    K.q8requant_cuda(acc, bias, rp))
+
+
+def check_shard_arithmetic(torch, err, u8):
+    """For n = 2 and 4 on one card: each K (or input-channel) slice's
+    partial launch on its slice record (parallel/mesh.py gemm_k_slice,
+    conv_c_slice), summed in int32 on the card, then q8requant with the
+    whole record's bias_c, must equal the unsharded q8gemm / q8conv bytes;
+    at the head and ResNet-18 shapes, kzp 128 and 103."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.nn.conv import (pack_conv_weights,
+                                           q8conv2d_partial)
+    from qnnpack_tpu_torch.nn.gemm import q8gemm_partial, q8requant
+    from qnnpack_tpu_torch.nn.packing import pack_gemm_weights
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+    from qnnpack_tpu_torch.parallel.mesh import conv_c_slice, gemm_k_slice
+
+    cuda = torch.device("cuda")
+    m, k, n = HEAD
+    bsz, h, w, c, o = RESNET_CONV
+    rp = make_requant_params("fp32", 2e-4, 128, 128, 188)
+    for izp, kzp in ((128, 128), (121, 103)):
+        a = torch.from_numpy(u8(m, k)).to(cuda)
+        packed = pack_gemm_weights(u8(n, k), np.arange(n, dtype=np.int32),
+                                   izp, kzp, device=cuda)
+        want = K.q8gemm_cuda(a, packed, rp)
+        x = torch.from_numpy(u8(bsz, h, w, c)).to(cuda)
+        cpacked = pack_conv_weights(u8(o, 3, 3, c), None, izp, kzp,
+                                    device=cuda)
+        cwant = K.q8conv_cuda(x, cpacked, rp, padding=((1, 1), (1, 1)))
+        for shards in (2, 4):
+            ks, cs = k // shards, c // shards
+            total = sum(q8gemm_partial(a[:, i * ks:(i + 1) * ks].contiguous(),
+                                       gemm_k_slice(packed, shards, i))
+                        for i in range(shards))
+            compare(torch, err, "q8requant",
+                    f"head {m}x{k}->{n} as {shards} K slices, kzp {kzp}",
+                    q8requant(total, packed.bias_c, rp), want)
+            total = sum(q8conv2d_partial(
+                x[..., i * cs:(i + 1) * cs].contiguous(),
+                conv_c_slice(cpacked, shards, i), padding=((1, 1), (1, 1)))
+                for i in range(shards))
+            compare(torch, err, "q8requant",
+                    f"resnet 3x3 {c}->{o} as {shards} C slices, kzp {kzp}",
+                    q8requant(total.reshape(-1, o), cpacked.bias_c,
+                              rp).reshape(cwant.shape), cwant)
+        del a, x, packed, cpacked
+
+
+def check_parallel(torch, err, models, rng):
+    """Phase 10: the parallel layer on the card.  The partial instances and
+    q8requant against their plain versions; the shard arithmetic of K and
+    input-channel TP for n = 2 and 4 on one card; then a one-rank NCCL mesh
+    (make_mesh(device="cuda"), the only mesh one card allows): the
+    MobileNetV2 b128 forward through shard_params + sharded_inference_fn
+    equal to entry's forward, gemm_kdim_tp and conv_ic_tp (kzp 128 and
+    103) equal to q8gemm / q8conv, spatial_conv2d, pipeline_apply and
+    grouped_conv2d_ep equal to their unsharded convs and GEMMs; one run of
+    the main path launches PARALLEL_LAUNCHES.  Timed: the partial
+    instances beside plain q8gemm / q8conv in turns, q8requant against its
+    bound, and the sharded forward against entry's, eager and captured.
+    The world is torn down at the end."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch import parallel as P
+    from qnnpack_tpu_torch.nn.conv import im2col, pack_conv_weights, q8conv2d
+    from qnnpack_tpu_torch.nn.gemm import q8gemm
+    from qnnpack_tpu_torch.nn.packing import pack_gemm_weights
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+    from qnnpack_tpu_torch.ops.base import jit_forward
+
+    cuda = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def u8(*shape):
+        return rng.integers(0, 256, shape, dtype=np.int64).astype(np.uint8)
+
+    def equal(label, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: sharded != unsharded")
+        log(f"  {label:58s} equal")
+
+    check_partials(torch, err, u8, sms)
+    check_shard_arithmetic(torch, err, u8)
+
+    mesh = P.make_mesh(device="cuda")
+    log(f"    one-rank mesh: {mesh}, backend "
+        f"{torch.distributed.get_backend()}")
+    fn, params, _ = models["mobilenet_v2"]
+    xb = torch.from_numpy(u8(128, 224, 224, 3)).to(cuda)
+    sharded = P.shard_params(params, mesh)
+    fwd = P.sharded_inference_fn(fn, mesh)
+    bs = P.batch_sharding(mesh)
+    m, k, n = HEAD
+    head_a = torch.from_numpy(u8(m, k)).to(cuda)
+    bsz, h, w, c, o = RESNET_CONV
+    conv_x = torch.from_numpy(u8(bsz, h, w, c)).to(cuda)
+    rp = make_requant_params("fp32", 2e-4, 128, 128, 188)
+    p1 = ((1, 1), (1, 1))
+    heads = {kzp: pack_gemm_weights(u8(n, k), None, izp, kzp, device=cuda)
+             for izp, kzp in ((128, 128), (121, 103))}
+    convs = {kzp: pack_conv_weights(u8(o, 3, 3, c), None, izp, kzp,
+                                    device=cuda)
+             for izp, kzp in ((128, 128), (121, 103))}
+    with torch.inference_mode():
+        want = fn(params, xb)
+        got = bs.gather(fwd(sharded, bs.shard(xb)))
+        equal("MobileNetV2 b128 sharded (one-rank mesh) vs entry", got, want)
+        for kzp in (128, 103):
+            equal(f"gemm_kdim_tp head kzp {kzp}",
+                  P.gemm_kdim_tp(head_a, heads[kzp], rp, mesh),
+                  q8gemm(head_a, heads[kzp], rp))
+            equal(f"conv_ic_tp resnet 3x3 kzp {kzp}",
+                  P.conv_ic_tp(conv_x, convs[kzp], rp, mesh, padding=p1),
+                  q8conv2d(conv_x, convs[kzp], rp, padding=p1))
+        equal("spatial_conv2d resnet 3x3 on 'data'",
+              P.spatial_conv2d(conv_x, convs[103], rp, mesh, axis="data",
+                               padding=p1),
+              q8conv2d(conv_x, convs[103], rp, padding=p1))
+        stage = pack_gemm_weights(u8(512, 512), None, 121, 103, device=cuda)
+        x_micro = torch.from_numpy(u8(4, 128, 512)).to(cuda)
+        equal("pipeline_apply one stage 4 x 128x512",
+              P.pipeline_apply(lambda p, v: q8gemm(v, p, rp),
+                               P.stack_stage_params([stage]), x_micro, mesh),
+              torch.stack([q8gemm(v, stage, rp) for v in x_micro]))
+        grouped = pack_conv_weights(u8(60, 1, 1, 80), None, 128, 128, 3,
+                                    device=cuda)
+        gx = torch.from_numpy(u8(128, 28, 28, 240)).to(cuda)
+        equal("grouped_conv2d_ep g3 28x28 80->20",
+              P.grouped_conv2d_ep(gx, grouped, rp, mesh),
+              q8conv2d(gx, grouped, rp))
+
+        K.reset_launch_counts()
+        bs.gather(fwd(sharded, bs.shard(xb)))
+        P.gemm_kdim_tp(head_a, heads[128], rp, mesh)
+        P.conv_ic_tp(conv_x, convs[128], rp, mesh, padding=p1)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        log(f"    main path launches: {launches}")
+        if launches != PARALLEL_LAUNCHES:
+            raise AssertionError(f"launches {launches} != "
+                                 f"{PARALLEL_LAUNCHES}")
+
+        # Times, in turns (plain kernel, partial, partial, plain kernel).
+        head, conv = heads[128], convs[128]
+        t = {}
+        for name, run in (
+                ("q8gemm", lambda: K.q8gemm_cuda(head_a, head, rp)),
+                ("q8gemm_partial", lambda: K.q8gemm_partial_cuda(head_a,
+                                                                 head)),
+                ("q8gemm_partial 2", lambda: K.q8gemm_partial_cuda(head_a,
+                                                                   head)),
+                ("q8gemm 2", lambda: K.q8gemm_cuda(head_a, head, rp)),
+                ("q8conv", lambda: K.q8conv_cuda(conv_x, conv, rp,
+                                                 padding=p1)),
+                ("q8conv_partial", lambda: K.q8conv_partial_cuda(
+                    conv_x, conv, padding=p1)),
+                ("q8conv_partial 2", lambda: K.q8conv_partial_cuda(
+                    conv_x, conv, padding=p1)),
+                ("q8conv 2", lambda: K.q8conv_cuda(conv_x, conv, rp,
+                                                   padding=p1))):
+            t[name] = time_ms(run, torch)
+        acc = K.q8gemm_partial_cuda(head_a, head)
+        cacc = K.q8conv_partial_cuda(conv_x, conv, padding=p1).reshape(-1, o)
+        rows = {}
+        cols, _ = im2col(conv_x, conv, (1, 1), p1)
+        # (name, M, K, N, input bytes, ...): each input read once, the
+        # int32 output written once.
+        for name, mm, kk, nn, a_bytes, plain, library in (
+                ("q8gemm_partial", m, k, n, head_a.numel(),
+                 lambda: K.partial_acc_plain(head_a, head.w, head.kzp_biased),
+                 int_mm_yardstick(torch, head_a, head.w)),
+                ("q8conv_partial", bsz * h * w, 9 * c, o, conv_x.numel(),
+                 lambda: K.q8conv_partial_plain(conv_x, conv, padding=p1),
+                 int_mm_yardstick(torch, cols, conv.as_gemm().w))):
+            nbytes = a_bytes + kk * nn + 4 * mm * nn
+            ops = 2 * mm * nn * kk
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+            rows[name] = dict(
+                ms=(t[name] + t[name + " 2"]) / 2,
+                plain_ms=time_ms(plain, torch, repeats=1),
+                library_ms=time_ms(library, torch), bound_ms=bound,
+                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                          >= ops / INT8_OPS_PER_S else "operations"),
+                plan=plan_tag(partial_plan(
+                    name, head if name == "q8gemm_partial" else conv, mm,
+                    sms)))
+            base = name.split("_")[0]
+            rows[name]["kernel_ms"] = (t[base] + t[base + " 2"]) / 2
+        rq = {}
+        for label, a_i32, bias in (("head", acc, head.bias_c),
+                                   ("resnet", cacc, conv.bias_c)):
+            mm, nn = a_i32.shape
+            rq[label] = dict(
+                ms=time_ms(lambda: K.q8requant_cuda(a_i32, bias, rp), torch),
+                plain_ms=time_ms(lambda: K.q8requant_plain(a_i32, bias, rp),
+                                 torch, repeats=1),
+                bound_ms=(5 * mm * nn + 4 * nn) / HBM_BYTES_PER_S * 1e3)
+        rows["q8requant"] = dict(
+            {key: rq["head"][key] + rq["resnet"][key]
+             for key in ("ms", "plain_ms", "bound_ms")},
+            bound_by="bytes", library_ms=None, head=rq["head"],
+            resnet=rq["resnet"])
+        e1 = forward_ips(torch, fn, params, xb, 3)
+        s1 = forward_ips(torch, lambda p, v: fwd(p, v), sharded, xb, 3)
+        s2 = forward_ips(torch, lambda p, v: fwd(p, v), sharded, xb, 3)
+        e2 = forward_ips(torch, fn, params, xb, 3)
+        jf_e, jf_s = jit_forward(fn), jit_forward(fwd)
+        if not torch.equal(jf_s(sharded, xb), want) or \
+                not torch.equal(jf_e(params, xb), want):
+            raise AssertionError("captured sharded forward != entry's")
+        ge1 = forward_ips(torch, jf_e, params, xb, 3)
+        gs1 = forward_ips(torch, jf_s, sharded, xb, 3)
+        gs2 = forward_ips(torch, jf_s, sharded, xb, 3)
+        ge2 = forward_ips(torch, jf_e, params, xb, 3)
+        jf_e.clear()
+        jf_s.clear()
+    forward = dict(entry_eager_ms=(e1[1] + e2[1]) / 2,
+                   sharded_eager_ms=(s1[1] + s2[1]) / 2,
+                   entry_graph_ms=(ge1[1] + ge2[1]) / 2,
+                   sharded_graph_ms=(gs1[1] + gs2[1]) / 2)
+    for name in ("q8gemm_partial", "q8conv_partial"):
+        r = rows[name]
+        log(f"    {name} {r['plan']}: {r['ms']:.4f} ms (plain kernel in "
+            f"turns {r['kernel_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms")
+    for label, r in rq.items():
+        log(f"    q8requant {label}: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (bytes, {r['bound_ms'] / r['ms']:.0%}), "
+            f"plain {r['plain_ms']:.4f} ms")
+    log("    MobileNetV2 b128 sharded vs entry: eager "
+        f"{forward['sharded_eager_ms']:.3f} vs "
+        f"{forward['entry_eager_ms']:.3f} ms, captured "
+        f"{forward['sharded_graph_ms']:.3f} vs "
+        f"{forward['entry_graph_ms']:.3f} ms")
+    P.distributed_shutdown()
+    return launches, rows, forward
+
+
 def main() -> int:
     global HBM_BYTES_PER_S, INT8_OPS_PER_S
     import torch
@@ -2746,11 +3151,16 @@ def main() -> int:
     log(f"[9] HealthMonitor.probe_once() on {torch.cuda.device_count()} "
         "card(s): True")
 
+    log("[10] the parallel layer: partial instances, q8requant, shard "
+        "arithmetic, a one-rank NCCL mesh")
+    launches["parallel"], parallel_rows, parallel_forward = check_parallel(
+        torch, max_err, models, rng)
+
     b128 = [r for key, rows in per_shape.items() if key.endswith("b128")
             and key.split()[0] not in IMPORTED for r in rows]
     kernels_line = []
     for name in K.KERNELS:
-        s = summarize(b128, name)
+        s = parallel_rows.get(name) or summarize(b128, name)
         source, replaces = SOURCES[name]
         kernels_line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -2767,6 +3177,7 @@ def main() -> int:
         nvcc_seconds=_build.build_seconds, ptxas=ptxas,
         launch_floor_ms=floor_ms, forward=forward, timing=timing,
         ops_graph=ops_graph, row_sums=row_sum_timing,
+        parallel=dict(rows=parallel_rows, forward=parallel_forward),
         deconv_ops=deconv_rows,
         launches_per_forward=launches,
         served_batches=served_batches, served_p50_ms=latency,

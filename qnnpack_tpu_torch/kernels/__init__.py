@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a): one for each TPU kernel
-ported, and q8bmm and u8lut32norm for the two ops of the BERT path that the
-JAX package runs without a Pallas form (every op of a path runs on a kernel
-of this package).
+ported, q8bmm and u8lut32norm for the two ops of the BERT path that the
+JAX package runs without a Pallas form, and q8requant for the epilogue of
+the sharded products (every op of a path runs on a kernel of this
+package).  q8gemm_partial and q8conv_partial are instances of q8gemm.cu
+and q8conv.cu with wrappers and launch counts of their own.
 
 Each module holds a kernel's wrapper (`*_cuda`, which launches the kernel
 for CUDA tensors and counts launches in its `launches` attribute) and its
@@ -12,9 +14,12 @@ The CUDA sources are in csrc/; _build.py compiles them at first launch.
 from .pool import (q8avgpool_cuda, q8avgpool_plain, q8gavgpool_cuda,
                    q8gavgpool_plain, u8maxpool_cuda, u8maxpool_plain)
 from .q8bmm import q8bmm_cuda, q8bmm_plain
-from .q8conv import q8conv_cuda, q8conv_plain
+from .q8conv import (q8conv_cuda, q8conv_partial_cuda, q8conv_partial_plain,
+                     q8conv_plain)
 from .q8dwconv import q8dwconv_cuda, q8dwconv_plain
-from .q8gemm import q8gemm_cuda, q8gemm_plain
+from .q8gemm import (partial_acc_plain, q8gemm_cuda, q8gemm_partial_cuda,
+                     q8gemm_plain)
+from .q8requant import q8requant_cuda, q8requant_plain
 from .q8stem import q8stem_cuda, q8stem_plain
 from .vpu_ops import (q8vadd_cuda, q8vadd_plain, u8clamp_cuda, u8clamp_plain,
                       u8lut32norm_cuda, u8lut32norm_plain, u8rmax_cuda,
@@ -33,6 +38,9 @@ KERNELS = {
     "u8rmax": u8rmax_cuda,
     "u8lut32norm": u8lut32norm_cuda,
     "u8clamp": u8clamp_cuda,
+    "q8gemm_partial": q8gemm_partial_cuda,
+    "q8conv_partial": q8conv_partial_cuda,
+    "q8requant": q8requant_cuda,
 }
 
 

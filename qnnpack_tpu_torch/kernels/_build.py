@@ -54,6 +54,11 @@ SIGNATURES = {
     "qnn_u8clamp": [_I, _P, _P, _I64, _I, _I, _P],
     "qnn_u8rmax": [_I, _P, _P, _I64, _I, _I, _I, _P],
     "qnn_u8lut32norm": [_I, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    "qnn_q8gemm_partial": [_I, _P, _P, _P, _I64, _I, _I, _I, _I,
+                           _I, _I, _I, _P, _P, _P],
+    "qnn_q8conv_partial": [_I, _P, _P, _P] + [_I] * 19
+                          + [_I, _I, _I, _P, _P, _P],
+    "qnn_q8requant": [_I, _P, _P, _P, _P, _I64, _I] + [_I] * 6 + [_F, _P],
 }
 
 _lock = threading.Lock()

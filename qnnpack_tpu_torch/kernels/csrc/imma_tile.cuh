@@ -533,6 +533,48 @@ __device__ __forceinline__ void epilogue(
   }
 }
 
+// The output side of a partial instance (q8gemm.cu, q8conv.cu): each tile
+// element's acc - kzp' * rowsum (uint32, wrapping) stored as int32, with
+// no c and no requantization, at output column col_base + gn of rows
+// out_stride elements apart.  A caller sums the K slices' partials and
+// then adds c and requantizes once (q8requant.cu).  Straight from the
+// fragments: each quad of lanes stores 32 contiguous bytes of a row.
+template <class T>
+__device__ __forceinline__ void store_partial(
+    const Acc<T>& acc, int64_t m0, int n0, int64_t m, int n,
+    int64_t out_stride, int col_base, int kzp_biased,
+    int32_t* __restrict__ out) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = (warp / T::WN) * T::kWarpRows + (lane >> 2);
+  const int col0 = (warp % T::WN) * T::kWarpCols + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t gm = m0 + row0 + i * 16 + 8 * h;
+      if (gm >= m) continue;
+      const uint32_t zp_term = static_cast<uint32_t>(kzp_biased) *
+                               static_cast<uint32_t>(acc.rs[i][2 * h]);
+      int32_t* row = out + gm * out_stride + col_base;
+#pragma unroll
+      for (int j = 0; j < T::NT; ++j) {
+        const int gn = n0 + col0 + j * 8;
+        const int32_t v0 = static_cast<int32_t>(
+            static_cast<uint32_t>(acc.c[i][j][2 * h]) - zp_term);
+        const int32_t v1 = static_cast<int32_t>(
+            static_cast<uint32_t>(acc.c[i][j][2 * h + 1]) - zp_term);
+        if (gn + 1 < n && reinterpret_cast<uintptr_t>(row + gn) % 8 == 0) {
+          *reinterpret_cast<int2*>(row + gn) = make_int2(v0, v1);
+        } else {
+          if (gn < n) row[gn] = v0;
+          if (gn + 1 < n) row[gn + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
 // Largest copy width in {16, 8, 4, 1} that both the base address and the
 // row pitch (or channel run) `run` are multiples of.
 inline int copy_width(const void* base, int64_t run) {

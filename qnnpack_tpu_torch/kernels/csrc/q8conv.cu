@@ -29,6 +29,16 @@
 //     weights and adds nothing to the row sum.
 // The group is blockIdx.z / splits.  G = 1 is the dense conv.
 //
+// A second instance of each shape is the partial of input-channel-sharded
+// tensor parallelism (parallel/mesh.py:conv_ic_tp): after the K loop (and
+// split-K's reduction) it stores the raw int32 acc - kzp' * sum_k A over
+// the record's taps and channels, [M, G*Ocpg], with no c and no
+// requantization (imma_tile.cuh store_partial).  Its zero-point taps read
+// izp on every shard and its row sum counts them, which is the unsharded
+// window sum over the padded input; the channel slices' partials, summed
+// in int32 across ranks, plus the full record's c, are acc mod 2^32.  A
+// compile-time flag (PARTIAL), so the plain instances are unchanged.
+//
 // What bounds it: the ResNet-18 bodies have K = 576..4608, far above the
 // int8 ridge, so they are bound by the tensor cores; ShuffleNet's grouped
 // 1x1 layers (K = 20..320 a group) are bound by bytes.  Design: the
@@ -65,6 +75,11 @@ struct ConvArgs {
   int izp, kzp_biased, copy_w;
   qnn::Requant rp;
   im::Split sp;
+};
+
+// The partial instance's arguments.
+struct PartialConvArgs : ConvArgs {
+  int32_t* acc_out;  // [M, out_channels] int32
 };
 
 // Each block row's window origin (iy0, ix0) and image base pixel b*H*W.
@@ -149,9 +164,9 @@ struct ConvLoader {
   }
 };
 
-template <class T, int W>
+template <class T, int W, bool PARTIAL, class Args>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
-    q8conv_kernel(const ConvArgs p) {
+    q8conv_kernel(const Args p) {
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ int iy0[T::BM];
   __shared__ int ix0[T::BM];
@@ -206,21 +221,26 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
         blockIdx.x;
     if (!im::split_reduce<T>(acc, p.sp, tile, split, &flag)) return;
   }
-  im::epilogue<T>(acc, ring, m0, n0, m, p.ocpg, p.out_channels,
-                  group * p.ocpg, p.bias_c, p.scales, p.kzp_biased, p.rp,
-                  p.out);
+  if constexpr (PARTIAL) {
+    im::store_partial<T>(acc, m0, n0, m, p.ocpg, p.out_channels,
+                         group * p.ocpg, p.kzp_biased, p.acc_out);
+  } else {
+    im::epilogue<T>(acc, ring, m0, n0, m, p.ocpg, p.out_channels,
+                    group * p.ocpg, p.bias_c, p.scales, p.kzp_biased, p.rp,
+                    p.out);
+  }
 }
 
-template <class T>
-cudaError_t launch(const ConvArgs& p, int groups, int device,
+template <class T, bool PARTIAL, class Args>
+cudaError_t launch(const Args& p, int groups, int device,
                    cudaStream_t stream) {
   static unsigned ready = 0;
-  const cudaError_t err =
-      im::allow_smem(q8conv_kernel<T, 16>, q8conv_kernel<T, 0>,
-                     T::kSmemBytes, device, ready);
+  const cudaError_t err = im::allow_smem(
+      q8conv_kernel<T, 16, PARTIAL, Args>, q8conv_kernel<T, 0, PARTIAL, Args>,
+      T::kSmemBytes, device, ready);
   if (err != cudaSuccess) return err;
-  const auto kernel =
-      p.copy_w == 16 ? q8conv_kernel<T, 16> : q8conv_kernel<T, 0>;
+  const auto kernel = p.copy_w == 16 ? q8conv_kernel<T, 16, PARTIAL, Args>
+                                     : q8conv_kernel<T, 0, PARTIAL, Args>;
   const int64_t m =
       static_cast<int64_t>(p.batch) * p.out_height * p.out_width;
   const dim3 grid(static_cast<unsigned>((m + T::BM - 1) / T::BM),
@@ -228,6 +248,51 @@ cudaError_t launch(const ConvArgs& p, int groups, int device,
                   static_cast<unsigned>(groups * p.sp.splits));
   kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool PARTIAL, class Args>
+cudaError_t launch_tile(const Args& p, int groups, int tile, int device,
+                        cudaStream_t s) {
+  switch (tile) {
+    case 0:
+      return launch<im::Tile128x128, PARTIAL>(p, groups, device, s);
+    case 1:
+      return launch<im::Tile128x64, PARTIAL>(p, groups, device, s);
+    case 2:
+      return launch<im::Tile64x64, PARTIAL>(p, groups, device, s);
+    case 3:  // a step never straddles two taps
+      if (p.icpg_p % im::Tile128x128Deep::kStep ||
+          (p.sp.splits > 1 &&
+           p.sp.steps_per_split % im::Tile128x128Deep::kUnits)) {
+        return cudaErrorInvalidValue;
+      }
+      return launch<im::Tile128x128Deep, PARTIAL>(p, groups, device, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The geometry and plan are usable (see qnn_q8conv); sets icpg and ocpg.
+bool conv_ok(int batch, int height, int width, int channels,
+             int out_channels, int groups, int kernel_h, int kernel_w,
+             int icpg_p, int splits, int steps_per_split,
+             const void* workspace, const void* counters, const void* w,
+             int& icpg, int& ocpg) {
+  if (groups < 1 || channels % groups != 0 || out_channels % groups != 0) {
+    return false;
+  }
+  icpg = channels / groups;
+  ocpg = out_channels / groups;
+  const int steps = kernel_h * kernel_w * (icpg_p / im::kStepK);
+  return icpg_p % im::kStepK == 0 && icpg_p >= icpg && steps >= 1 &&
+         splits >= 1 && steps_per_split >= 1 &&
+         steps_per_split <= im::kMaxChainSteps &&
+         static_cast<int64_t>(splits) * steps_per_split >= steps &&
+         (splits - 1) * steps_per_split < steps &&
+         static_cast<int64_t>(groups) * splits <= 65535 &&
+         static_cast<int64_t>(batch) * height * width < (int64_t{1} << 31) &&
+         (splits == 1 || (workspace != nullptr && counters != nullptr)) &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0;
 }
 
 }  // namespace
@@ -253,21 +318,10 @@ extern "C" int qnn_q8conv(int device, const void* a, const void* w,
   }
   const int64_t m = static_cast<int64_t>(batch) * out_height * out_width;
   if (m == 0 || out_channels == 0) return 0;
-  if (groups < 1 || channels % groups != 0 || out_channels % groups != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int icpg = channels / groups;
-  const int ocpg = out_channels / groups;
-  const int steps = kernel_h * kernel_w * (icpg_p / im::kStepK);
-  if (icpg_p % im::kStepK != 0 || icpg_p < icpg || steps < 1 ||
-      splits < 1 || steps_per_split < 1 ||
-      steps_per_split > im::kMaxChainSteps ||
-      static_cast<int64_t>(splits) * steps_per_split < steps ||
-      (splits - 1) * steps_per_split >= steps ||
-      static_cast<int64_t>(groups) * splits > 65535 ||
-      static_cast<int64_t>(batch) * height * width >= (int64_t{1} << 31) ||
-      (splits > 1 && (workspace == nullptr || counters == nullptr)) ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0) {
+  int icpg = 0, ocpg = 0;
+  if (!conv_ok(batch, height, width, channels, out_channels, groups,
+               kernel_h, kernel_w, icpg_p, splits, steps_per_split,
+               workspace, counters, w, icpg, ocpg)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ConvArgs p{
@@ -285,22 +339,54 @@ extern "C" int qnn_q8conv(int device, const void* a, const void* w,
       qnn::Requant{scheme, multiplier, shift, zero_point, qmin, qmax, scale},
       im::Split{splits, steps_per_split, static_cast<int32_t*>(workspace),
                 static_cast<int*>(counters)}};
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (tile) {
-    case 0:
-      return static_cast<int>(launch<im::Tile128x128>(p, groups, device, s));
-    case 1:
-      return static_cast<int>(launch<im::Tile128x64>(p, groups, device, s));
-    case 2:
-      return static_cast<int>(launch<im::Tile64x64>(p, groups, device, s));
-    case 3:  // a step never straddles two taps
-      if (icpg_p % im::Tile128x128Deep::kStep ||
-          (splits > 1 && steps_per_split % im::Tile128x128Deep::kUnits)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      return static_cast<int>(
-          launch<im::Tile128x128Deep>(p, groups, device, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_tile<false>(
+      p, groups, tile, device, static_cast<cudaStream_t>(stream)));
+}
+
+// The partial instance: acc_out [M, out_channels] int32 gets sum_k A W' -
+// kzp' * sum_k A over the record's taps and channels (izp taps included,
+// wrapping), with no c and no requantization; the other arguments as for
+// qnn_q8conv.
+extern "C" int qnn_q8conv_partial(int device, const void* a, const void* w,
+                                  void* acc_out, int batch, int height,
+                                  int width, int channels, int out_height,
+                                  int out_width, int out_channels,
+                                  int groups, int kernel_h, int kernel_w,
+                                  int stride_h, int stride_w, int pad_top,
+                                  int pad_left, int dil_h, int dil_w,
+                                  int izp, int kzp_biased, int icpg_p,
+                                  int tile, int splits, int steps_per_split,
+                                  void* workspace, void* counters,
+                                  void* stream) {
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
   }
+  const int64_t m = static_cast<int64_t>(batch) * out_height * out_width;
+  if (m == 0 || out_channels == 0) return 0;
+  int icpg = 0, ocpg = 0;
+  if (!conv_ok(batch, height, width, channels, out_channels, groups,
+               kernel_h, kernel_w, icpg_p, splits, steps_per_split,
+               workspace, counters, w, icpg, ocpg)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PartialConvArgs p{};
+  static_cast<ConvArgs&>(p) = ConvArgs{
+      static_cast<const uint8_t*>(a),
+      static_cast<const int8_t*>(w),
+      nullptr,
+      nullptr,
+      nullptr,
+      batch, height, width, channels,
+      out_height, out_width, out_channels,
+      icpg, ocpg, icpg_p,
+      kernel_h, kernel_w, stride_h, stride_w, pad_top, pad_left, dil_h,
+      dil_w,
+      izp, kzp_biased, im::copy_width(a, icpg),
+      qnn::Requant{},
+      im::Split{splits, steps_per_split, static_cast<int32_t*>(workspace),
+                static_cast<int*>(counters)}};
+  p.acc_out = static_cast<int32_t*>(acc_out);
+  return static_cast<int>(launch_tile<true>(
+      p, groups, tile, device, static_cast<cudaStream_t>(stream)));
 }

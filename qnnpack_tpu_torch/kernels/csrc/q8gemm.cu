@@ -37,7 +37,14 @@
 //   - the consumer takes those sums rs[m] = sum_k (A[m, k] - 128) in place
 //     of its row-sum mma: c assumes the raw sum A, which is rs[m] + 128 K
 //     with the true K (zeros past K add nothing).
-// Both are compile-time flags (RS), so the plain instances are unchanged.
+// A fourth instance of each shape is the partial of K-sharded tensor
+// parallelism (parallel/mesh.py:gemm_kdim_tp): after the K loop (and
+// split-K's reduction) it stores the raw int32 acc - kzp' * sum_k A over
+// the record's K, [M, N], with no c and no requantization
+// (imma_tile.cuh store_partial).  The K slices' partials, summed in int32
+// across ranks, plus the full record's c, are acc mod 2^32; q8requant.cu
+// then requantizes once.  All three are compile-time flags (RS), so the
+// plain instances are unchanged.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -80,11 +87,14 @@ struct GemmArgs {
   im::Split sp;
 };
 
-// The row-sum instances' arguments (RS != kPlain).
-enum RowSums { kPlain = 0, kProduce = 1, kConsume = 2 };
+// The row-sum and partial instances' arguments (RS != kPlain).
+enum RowSums { kPlain = 0, kProduce = 1, kConsume = 2, kPartial = 3 };
 struct RowSumGemmArgs : GemmArgs {
   const int32_t* rs_in;  // kConsume: [M] sum_k (A - 128)
   int32_t* rs_out;       // kProduce: [M], zeroed; gets sum_n (y - 128)
+};
+struct PartialGemmArgs : GemmArgs {
+  int32_t* acc_out;  // kPartial: [M, N] int32
 };
 
 // W = 16: every A copy is 16 bytes (the main paths' case, compiled on its
@@ -141,6 +151,11 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     const int64_t tile =
         static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
     if (!im::split_reduce<T>(acc, p.sp, tile, split, &flag)) return;
+  }
+  if constexpr (RS == kPartial) {
+    im::store_partial<T>(acc, m0, n0, p.m, p.n, p.n, 0, p.kzp_biased,
+                         p.acc_out);
+    return;
   }
   if constexpr (RS == kConsume) {
     // The epilogue's -kzp' * rowsum term, from the given sums (uint32).
@@ -212,6 +227,20 @@ cudaError_t launch_tile(const Args& p, int tile, int device,
   }
 }
 
+// The launch plan and weights are usable: kp a whole number of K steps
+// covering K, every split within one int32 chain and none empty, scratch
+// for a split launch, 16-byte aligned weights.
+bool plan_ok(const void* w, int k, int kp, int splits, int steps_per_split,
+             const void* workspace, const void* counters) {
+  const int steps = kp / im::kStepK;
+  return kp % im::kStepK == 0 && kp >= k && steps >= 1 && splits >= 1 &&
+         steps_per_split >= 1 && steps_per_split <= im::kMaxChainSteps &&
+         static_cast<int64_t>(splits) * steps_per_split >= steps &&
+         (splits - 1) * steps_per_split < steps &&
+         (splits == 1 || (workspace != nullptr && counters != nullptr)) &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0;
+}
+
 }  // namespace
 
 // tile: 0 = 128 x 128, 1 = 128 x 64, 2 = 64 x 64 (kernels/q8gemm.py TILES).
@@ -232,13 +261,7 @@ extern "C" int qnn_q8gemm(int device, const void* a, const void* w,
     return static_cast<int>(guard.error());
   }
   if (m == 0 || n == 0) return 0;
-  const int steps = kp / im::kStepK;
-  if (kp % im::kStepK != 0 || kp < k || steps < 1 || splits < 1 ||
-      steps_per_split < 1 || steps_per_split > im::kMaxChainSteps ||
-      static_cast<int64_t>(splits) * steps_per_split < steps ||
-      (splits - 1) * steps_per_split >= steps ||
-      (splits > 1 && (workspace == nullptr || counters == nullptr)) ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+  if (!plan_ok(w, k, kp, splits, steps_per_split, workspace, counters) ||
       (row_sums_in != nullptr && row_sums_out != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -264,6 +287,39 @@ extern "C" int qnn_q8gemm(int device, const void* a, const void* w,
   return static_cast<int>(
       row_sums_in != nullptr ? launch_tile<kConsume>(r, tile, device, s)
                              : launch_tile<kProduce>(r, tile, device, s));
+}
+
+// The partial instance: acc_out [M, N] int32 gets sum_k A W' - kzp' *
+// sum_k A over the record's K (wrapping), with no c and no requantization;
+// plan arguments as for qnn_q8gemm.
+extern "C" int qnn_q8gemm_partial(int device, const void* a, const void* w,
+                                  void* acc_out, int64_t m, int n, int k,
+                                  int kp, int kzp_biased, int tile,
+                                  int splits, int steps_per_split,
+                                  void* workspace, void* counters,
+                                  void* stream) {
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
+  if (m == 0 || n == 0) return 0;
+  if (!plan_ok(w, k, kp, splits, steps_per_split, workspace, counters)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PartialGemmArgs p{};
+  static_cast<GemmArgs&>(p) = GemmArgs{
+      static_cast<const uint8_t*>(a),
+      static_cast<const int8_t*>(w),
+      nullptr,
+      nullptr,
+      nullptr,
+      m, n, k, kp, im::copy_width(a, k), kzp_biased,
+      qnn::Requant{},
+      im::Split{splits, steps_per_split, static_cast<int32_t*>(workspace),
+                static_cast<int*>(counters)}};
+  p.acc_out = static_cast<int32_t*>(acc_out);
+  return static_cast<int>(launch_tile<kPartial>(
+      p, tile, device, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* qnn_error_string(int code) {

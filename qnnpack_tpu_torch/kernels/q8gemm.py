@@ -15,6 +15,12 @@ q8conv alike (csrc/imma_tile.cuh).
 same kernel, whose producer instance also writes rs[m] = sum_n (y[m, n] -
 128) and whose consumer instance takes those sums in place of its own row
 sums.  Each is one q8gemm launch, counted in `q8gemm_cuda.launches`.
+
+`q8gemm_partial_cuda` runs the kernel's partial instance: the raw int32
+sum_k A W' - kzp' * sum_k A of a K slice, with no bias and no
+requantization, which K-sharded tensor parallelism sums across ranks
+(parallel/mesh.py:gemm_kdim_tp).  Its launches count in its own
+`launches`.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import threading
 import torch
 
 from ..nn.dtypes import u8_to_biased_i8
-from ..nn.packing import K_STEP, PackedGemmWeights
+from ..nn.packing import K_STEP, PackedGemmWeights, wrap_int32
 from ..nn.requant_dispatch import apply_requant
 from . import _build
 
@@ -183,6 +189,21 @@ def gemm_acc_plain(a_u8: torch.Tensor, w: torch.Tensor,
     return ((acc + 2**31) & 0xFFFFFFFF) - 2**31
 
 
+def partial_acc_plain(a_u8: torch.Tensor, w: torch.Tensor,
+                      kzp_biased: int) -> torch.Tensor:
+    """int32 [..., N]: sum_k A W' - kzp' * sum_k A over the raw uint8 A
+    (wrapped), the partial instances' output.  With c = bias' - 128 sum W'
+    + 128 K kzp' the K slices' partials plus c are the reference's
+    accumulator mod 2^32; a slice's partial alone is not the JAX shard's
+    (which sums A - 128), so only sums of them compare.  Exact in float64
+    as gemm_acc_plain."""
+    acc = torch.matmul(a_u8.to(torch.float64), w.to(torch.float64)).to(
+        torch.int64)
+    if kzp_biased != 0:
+        acc = acc - kzp_biased * a_u8.to(torch.int64).sum(dim=-1)[..., None]
+    return wrap_int32(acc)
+
+
 def q8gemm_plain(a_u8: torch.Tensor, packed: PackedGemmWeights, rparams):
     """Plain version of the kernel: uint8 [M, K] -> uint8 [M, N]."""
     return apply_requant(gemm_acc_plain(a_u8, packed.w, packed.bias_folded,
@@ -248,10 +269,31 @@ def q8gemm_presummed_cuda(a_u8: torch.Tensor, row_sums: torch.Tensor,
     return _launch(a_u8, packed, rparams, rs_in=row_sums)
 
 
-def _launch(a_u8, packed: PackedGemmWeights, rparams, rs_in=None,
-            rs_out=None):
-    """One launch of the kernel on CUDA tensors (the plain instance, or
-    with `rs_in` the consumer's, with `rs_out` the producer's)."""
+def q8gemm_partial_cuda(a_u8: torch.Tensor, packed: PackedGemmWeights):
+    """The partial instance: uint8 [M, K] -> int32 [M, N], sum_k A W' -
+    kzp' * sum_k A over the record's K (see partial_acc_plain)."""
+    _check_gemm(a_u8, packed)
+    if a_u8.device.type == "cpu":
+        return partial_acc_plain(a_u8, packed.w, packed.kzp_biased)
+    _check_launch(a_u8, packed)
+    m = a_u8.shape[0]
+    kp = packed.w_kmajor.shape[1]
+    out = torch.empty((m, packed.n), dtype=torch.int32, device=a_u8.device)
+    stream = _build.stream_of(a_u8)
+    work, plan = plan_launch(a_u8.device, stream, m, packed.n, kp // K_STEP)
+    _build.launch(
+        "qnn_q8gemm_partial", a_u8.device.index or 0, a_u8.data_ptr(),
+        packed.w_kmajor.data_ptr(), out.data_ptr(), m, packed.n, packed.k,
+        kp, packed.kzp_biased, *plan, stream)
+    q8gemm_partial_cuda.launches += 1
+    return out
+
+
+q8gemm_partial_cuda.launches = 0
+
+
+def _check_launch(a_u8, packed: PackedGemmWeights) -> None:
+    """Raise unless the launch's operands are CUDA tensors that fit."""
     _build.check_cuda("a", a_u8, torch.uint8, 2)
     _build.check_cuda("w_kmajor", packed.w_kmajor, torch.int8, 2)
     _build.check_cuda("bias_c", packed.bias_c, torch.int32, 1)
@@ -262,6 +304,14 @@ def _launch(a_u8, packed: PackedGemmWeights, rparams, rs_in=None,
     if n != packed.n or kp % K_STEP or kp < packed.k:
         raise ValueError(f"w_kmajor shape {(n, kp)} does not fit "
                          f"{(packed.k, packed.n)}")
+
+
+def _launch(a_u8, packed: PackedGemmWeights, rparams, rs_in=None,
+            rs_out=None):
+    """One launch of the kernel on CUDA tensors (the plain instance, or
+    with `rs_in` the consumer's, with `rs_out` the producer's)."""
+    _check_launch(a_u8, packed)
+    kp = packed.w_kmajor.shape[1]
     m = a_u8.shape[0]
     scales, rq = _build.requant_args(rparams, packed.n, a_u8.device)
     out = torch.empty((m, packed.n), dtype=torch.uint8, device=a_u8.device)

@@ -36,7 +36,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..kernels.q8conv import q8conv_cuda
+from ..kernels.q8conv import q8conv_cuda, q8conv_partial_cuda
 from ..kernels.q8dwconv import q8dwconv_cuda
 from ..kernels.q8stem import MAX_INPUT_CHANNELS, q8stem_cuda
 from .dtypes import biased_zero_point, u8_to_biased_i8
@@ -44,6 +44,7 @@ from .gemm import q8gemm
 from .packing import (PackedGemmWeights, as_tensor, fold_bias, round_up,
                       set_kernel_fields, wrap_int32)
 from .requant_dispatch import apply_requant
+from .shard import ColumnShard
 
 # The q8stem kernel's K order pads each kernel row to a multiple of this
 # many bytes (two rows of a 3- or 7-wide RGB window fill one 64-byte step).
@@ -73,6 +74,8 @@ class PackedConvWeights:
     deconv_plans: the DeconvPlan of each geometry this record has run a
                  deconv at, built on first use (q8deconv2d); empty at
                  construction
+    tp_slices:   the tensor-parallel slices of this record built so far
+                 (nn/shard.py, parallel/); empty at construction
     """
 
     w: torch.Tensor
@@ -94,6 +97,8 @@ class PackedConvWeights:
                                                     compare=False)
     deconv_plans: dict = dataclasses.field(init=False, repr=False,
                                            compare=False)
+    tp_slices: dict = dataclasses.field(init=False, repr=False,
+                                        compare=False)
 
     def __post_init__(self):
         kh, kw, icpg, o = self.w.shape
@@ -117,6 +122,7 @@ class PackedConvWeights:
         object.__setattr__(self, "w_dw", w_dw)
         object.__setattr__(self, "w_stem", w_stem)
         object.__setattr__(self, "deconv_plans", {})
+        object.__setattr__(self, "tp_slices", {})
 
     @property
     def izp_biased(self) -> int:
@@ -216,8 +222,13 @@ def q8conv2d(a_u8, packed: PackedConvWeights, rparams, strides=(1, 1),
     """Quantized 2D convolution: uint8 NHWC -> uint8 NHWC.
 
     Depthwise convs run q8dwconv, grouped ones q8conv, dense ones the
-    kernel `dense_conv_route` names."""
+    kernel `dense_conv_route` names.  A ColumnShard (parallel.shard_params)
+    runs its rank's output channels (and its groups' input channels) and
+    gathers every rank's."""
     strides, dilation = tuple(strides), tuple(dilation)
+    if isinstance(packed, ColumnShard):
+        return packed.run(q8conv2d, a_u8, rparams, strides, padding,
+                          dilation)
     if (packed.groups > 1 and packed.group_input_channels == 1
             and packed.group_output_channels == 1):
         return q8dwconv_cuda(a_u8, packed, rparams, strides, padding,
@@ -225,6 +236,19 @@ def q8conv2d(a_u8, packed: PackedConvWeights, rparams, strides=(1, 1),
     if dense_conv_route(packed, strides, dilation) == "q8stem":
         return q8stem_cuda(a_u8, packed, rparams, padding)
     return q8conv_cuda(a_u8, packed, rparams, strides, padding, dilation)
+
+
+def q8conv2d_partial(a_u8, packed: PackedConvWeights, strides=(1, 1),
+                     padding=((0, 0), (0, 0)), dilation=(1, 1)):
+    """The int32 partial of a dense conv over the record's input channels:
+    NHWC [B, Ho, Wo, O] of sum A W' - kzp' * sum A over the
+    zero-point-padded taps, with no bias and no requantization (q8conv's
+    partial instance; never q8stem, since an input-channel slice of a stem
+    is not a stem).  Input-channel slices' partials, summed in int32, plus
+    the full record's bias_c, requantized by nn.gemm.q8requant, are
+    q8conv2d (parallel/mesh.py:conv_ic_tp)."""
+    return q8conv_partial_cuda(a_u8, packed, tuple(strides), padding,
+                               tuple(dilation))
 
 
 # ------------------------------------------------------------ deconvolution

@@ -8,7 +8,10 @@ kernels/q8gemm.py on GPU tensors and its plain version on CPU tensors;
 of kernels/q8bmm.py the same way.  The row-sum pair `q8gemm_row_sums_out` /
 `q8gemm_presummed` runs the q8gemm kernel's producer and consumer
 instances: the producer also returns its output's row sums, which are
-exactly the kernel-zero-point term the next GEMM needs.
+exactly the kernel-zero-point term the next GEMM needs.  `q8gemm_partial`
+runs its partial instance (a K slice's raw int32 sum) and `q8requant` the
+q8requant kernel (bias and requantization of a summed accumulator), the
+two halves of K-sharded tensor parallelism (parallel/mesh.py).
 
 Not carried over: the TPU routing (`gemm_path`, `q8gemm_routed`).
 """
@@ -17,8 +20,11 @@ from __future__ import annotations
 
 from ..kernels.q8bmm import bmm_acc_plain, q8bmm_cuda
 from ..kernels.q8gemm import (gemm_acc_plain, q8gemm_cuda,
-                              q8gemm_presummed_cuda, q8gemm_row_sums_cuda)
+                              q8gemm_partial_cuda, q8gemm_presummed_cuda,
+                              q8gemm_row_sums_cuda)
+from ..kernels.q8requant import q8requant_cuda
 from .packing import PackedGemmWeights
+from .shard import ColumnShard
 
 
 def q8gemm_acc(a_u8, packed: PackedGemmWeights):
@@ -34,11 +40,36 @@ def q8gemm(a_u8, packed: PackedGemmWeights, rparams):
     """Full quantized GEMM: uint8 [..., K] -> uint8 [..., N].
 
     The leading axes are viewed as one M axis (free for a contiguous
-    tensor), so a 1x1 conv stays NHWC."""
+    tensor), so a 1x1 conv stays NHWC.  A ColumnShard
+    (parallel.shard_params) runs its rank's output columns and gathers
+    every rank's."""
+    if isinstance(packed, ColumnShard):
+        return packed.run(q8gemm, a_u8, rparams)
     lead = a_u8.shape[:-1]
     y = q8gemm_cuda(a_u8.reshape(-1, a_u8.shape[-1]).contiguous(), packed,
                     rparams)
     return y.reshape(*lead, packed.n)
+
+
+def q8gemm_partial(a_u8, packed: PackedGemmWeights):
+    """The int32 partial of the GEMM over the record's K: uint8 [..., K] ->
+    int32 [..., N], sum_k A W' - kzp' * sum_k A, with no bias and no
+    requantization (q8gemm's partial instance).  K slices' partials,
+    summed in int32, plus the full record's bias_c, requantized by
+    q8requant, are q8gemm (parallel/mesh.py:gemm_kdim_tp)."""
+    lead = a_u8.shape[:-1]
+    acc = q8gemm_partial_cuda(a_u8.reshape(-1, a_u8.shape[-1]).contiguous(),
+                              packed)
+    return acc.reshape(*lead, packed.n)
+
+
+def q8requant(acc_i32, bias_c, rparams):
+    """uint8 [..., N] = requantize(acc + bias_c) in any scheme (the int32
+    sum wraps): the q8requant kernel, the epilogue of a summed partial."""
+    lead = acc_i32.shape[:-1]
+    n = acc_i32.shape[-1]
+    y = q8requant_cuda(acc_i32.reshape(-1, n).contiguous(), bias_c, rparams)
+    return y.reshape(*lead, n)
 
 
 def q8gemm_row_sums_out(a_u8, packed: PackedGemmWeights, rparams):

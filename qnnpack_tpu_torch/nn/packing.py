@@ -72,6 +72,9 @@ class PackedGemmWeights:
     input_zero_point / kernel_zero_point: original uint8 zero points
     w_kmajor:    int8 [N, Kp] w transposed, zero past K (derived)
     bias_c:      int32 [N]    kmajor_bias of bias_folded (derived)
+    tp_slices:   the tensor-parallel slices of this record built so far
+                 (nn/shard.py, parallel/mesh.py), keyed by kind, shard
+                 count and index; empty at construction
     """
 
     w: torch.Tensor
@@ -84,6 +87,8 @@ class PackedGemmWeights:
                                                compare=False)
     bias_c: torch.Tensor = dataclasses.field(init=False, repr=False,
                                              compare=False)
+    tp_slices: dict = dataclasses.field(init=False, repr=False,
+                                        compare=False)
 
     def __post_init__(self):
         wk = torch.zeros((self.n, round_up(self.k)), dtype=torch.int8,
@@ -91,6 +96,7 @@ class PackedGemmWeights:
         wk[:, :self.k] = self.w.t()
         set_kernel_fields(self, wk, self.w.to(torch.int64).sum(dim=0),
                           self.k)
+        object.__setattr__(self, "tp_slices", {})
 
     @property
     def kzp_biased(self) -> int:

@@ -31,6 +31,7 @@ import enum
 import functools
 import math
 import threading
+import weakref
 
 import torch
 
@@ -252,6 +253,10 @@ class GraphRunner:
         return out
 
 
+# Every JitForward alive, for clear_all_graphs.
+_JIT_FORWARDS = weakref.WeakSet()
+
+
 class JitForward:
     """`fn` run as one CUDA graph per key (see jit_forward)."""
 
@@ -261,6 +266,7 @@ class JitForward:
         self._memo: dict = {}
         self._lock = threading.Lock()
         functools.update_wrapper(self, fn)
+        _JIT_FORWARDS.add(self)
 
     def key(self, *args) -> tuple:
         """The cache key of a call: each tensor argument's shape, dtype and
@@ -318,6 +324,16 @@ class JitForward:
         with self._lock:
             self.graphs.clear()
             self._memo.clear()
+
+
+def clear_all_graphs() -> int:
+    """Drop the captured graphs of every JitForward alive (the JAX
+    `jax.clear_caches()`), as after a device restart; returns how many
+    forwards were cleared."""
+    forwards = list(_JIT_FORWARDS)
+    for jf in forwards:
+        jf.clear()
+    return len(forwards)
 
 
 def jit_forward(fn) -> JitForward:

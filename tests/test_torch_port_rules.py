@@ -1,6 +1,9 @@
 """Rules of the PyTorch/CUDA port that a CPU run can check.
 
-- qnnpack_tpu_torch and chip_smoke.py import neither jax nor qnnpack_tpu,
+- qnnpack_tpu_torch (parallel/ included), chip_smoke.py,
+  parallel_smoke.py and the module
+  that the parallel tests' spawned processes import
+  (tests/torch_parallel_worlds.py) import neither jax nor qnnpack_tpu,
   nor flatbuffers (the TFLite importer reads the file itself);
 - the entry points raise when a GPU is asked for and absent;
 - every C entry point of kernels/csrc/ switches the CUDA device only
@@ -10,8 +13,8 @@
   the scheme codes with csrc/requant.cuh;
 - chip_smoke.py fails, printing no result, without a GPU or without the
   rest of the repository;
-- no module of the forward path (models/, nn/, kernels/) waits for the
-  device or copies to the host (torch.cuda.synchronize, .item(), .cpu(),
+- no module of the forward path (models/, nn/, kernels/, parallel/) waits
+  for the device or copies to the host (torch.cuda.synchronize, .item(), .cpu(),
   .tolist(), .numpy()), any of which would break a CUDA-graph capture.
 """
 
@@ -42,7 +45,8 @@ from qnnpack_tpu_torch.serving import InferenceServer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "qnnpack_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "parallel_smoke.py",
+     ROOT / "tests" / "torch_parallel_worlds.py"]
 
 
 def imported_modules(path):
@@ -65,9 +69,14 @@ def test_port_imports_no_jax(path):
 
 def test_port_files_were_found():
     assert len(PORT_FILES) > 15
+    parallel = ROOT / "qnnpack_tpu_torch" / "parallel"
+    assert {p.name for p in PORT_FILES if p.parent == parallel} == {
+        "__init__.py", "mesh.py", "halo.py", "expert.py", "pipeline.py",
+        "multihost.py"}
+    assert ROOT / "qnnpack_tpu_torch" / "nn" / "shard.py" in PORT_FILES
 
 
-FORWARD_PATH = sorted(p for d in ("models", "nn", "kernels")
+FORWARD_PATH = sorted(p for d in ("models", "nn", "kernels", "parallel")
                       for p in (ROOT / "qnnpack_tpu_torch" / d).rglob("*.py"))
 HOST_SYNCS = {"synchronize", "item", "cpu", "tolist", "numpy"}
 
@@ -205,7 +214,8 @@ def test_cpu_forward_launches_no_kernel():
     assert tkernels.launch_counts() == {
         "q8gemm": 0, "q8dwconv": 0, "q8vadd": 0, "q8gavgpool": 0,
         "q8conv": 0, "q8stem": 0, "u8maxpool": 0, "q8avgpool": 0,
-        "q8bmm": 0, "u8rmax": 0, "u8lut32norm": 0, "u8clamp": 0}
+        "q8bmm": 0, "u8rmax": 0, "u8lut32norm": 0, "u8clamp": 0,
+        "q8gemm_partial": 0, "q8conv_partial": 0, "q8requant": 0}
 
 
 def test_cpu_resnet18_forward_launches_no_kernel():
@@ -244,17 +254,19 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 
 def test_four_kernels_with_no_library_calls():
-    """The twelve kernel sources (four of the first slice, three of the
+    """The thirteen kernel sources (four of the first slice, three of the
     second, q8avgpool of the third, q8bmm, u8rmax, u8lut32norm and u8clamp
-    of the fourth) and their shared headers (the tensor-core tile of
-    q8gemm, q8conv and q8stem, the requantization, the row mapping of
-    u8rmax and u8lut32norm, the window mapping of u8maxpool and q8avgpool)
-    call no library."""
+    of the fourth, q8requant of the parallel layer) and their shared
+    headers (the tensor-core tile of q8gemm, q8conv and q8stem, the
+    requantization, the row mapping of u8rmax and u8lut32norm, the window
+    mapping of u8maxpool and q8avgpool) call no library.  The kernels'
+    registry also names the partial instances of q8gemm.cu and q8conv.cu,
+    whose wrappers count their own launches."""
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert names == ["q8avgpool.cu", "q8bmm.cu", "q8conv.cu", "q8dwconv.cu",
-                     "q8gavgpool.cu", "q8gemm.cu", "q8stem.cu", "q8vadd.cu",
-                     "u8clamp.cu", "u8lut32norm.cu", "u8maxpool.cu",
-                     "u8rmax.cu"]
+                     "q8gavgpool.cu", "q8gemm.cu", "q8requant.cu",
+                     "q8stem.cu", "q8vadd.cu", "u8clamp.cu",
+                     "u8lut32norm.cu", "u8maxpool.cu", "u8rmax.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == \
         ["device_guard.cuh", "imma_tile.cuh", "pool_tile.cuh",
          "requant.cuh", "u8rows.cuh"]
@@ -267,7 +279,8 @@ def test_four_kernels_with_no_library_calls():
                             "imma_tile.cuh", "u8rows.cuh",
                             "pool_tile.cuh", "device_guard.cuh"}, \
             f"{p.name} includes {includes}"
-    assert set(tkernels.KERNELS) == {n[:-3] for n in names}
+    assert set(tkernels.KERNELS) == {n[:-3] for n in names} | {
+        "q8gemm_partial", "q8conv_partial"}
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "-fmad=false" in _build.NVCC_FLAGS
 
@@ -312,6 +325,8 @@ def test_c_entries_restore_the_callers_device():
     caller's device on every return path, and returns its error first."""
     bodies = c_entry_bodies()
     assert set(bodies) == set(_build.SIGNATURES)
+    assert {"qnn_q8requant", "qnn_q8gemm_partial",
+            "qnn_q8conv_partial"} <= set(bodies)
     for name, body in bodies.items():
         assert "cudaSetDevice" not in body, name
         lines = [ln.strip() for ln in body.strip().splitlines()]
