@@ -2474,6 +2474,94 @@ def check_captured(torch, models, per_shape, forward, rng):
             torch.cuda.empty_cache()
 
 
+def check_runtime_spans(torch, models, rng, steps=20) -> dict:
+    """A MobileNetV2 b128 jit_forward loop under utils/profiling.trace():
+    every call is a qnnpack::runtime.key range (the key walk) followed by
+    a qnnpack::runtime.call range holding runtime.copy_in, runtime.replay
+    and runtime.clone_out, on the caller's thread; every replay holds the
+    step's cudaGraphLaunch, whose kernels start on the card after it, on
+    the trace's one timeline.  Returns the recorder's runtime spans over
+    the loop (calls, mean host us, mean self us a call)."""
+    from qnnpack_tpu_torch.entry import input_shape
+    from qnnpack_tpu_torch.ops.base import jit_forward
+    from qnnpack_tpu_torch.utils import profiling
+
+    fn, params, _ = models["mobilenet_v2"]
+    x = torch.from_numpy(rng.integers(
+        0, 256, (128,) + input_shape("mobilenet_v2"),
+        dtype=np.int64).astype(np.uint8)).cuda()
+    jf = jit_forward(fn)
+    out = Path("chiprun_out") / "runtime_spans"
+    with torch.inference_mode():
+        jf(params, x)
+        torch.cuda.synchronize()
+        before = profiling.totals()
+        with profiling.trace(out):
+            for _ in range(steps):
+                jf(params, x)
+            torch.cuda.synchronize()
+        after = profiling.totals()
+    jf.clear()
+    events = json.loads((out / "trace.json").read_text())["traceEvents"]
+    # A range's host side; the profiler adds a gpu_user_annotation copy of
+    # a range that launched device work, on the card's track.
+    xs = [e for e in events if e.get("ph") == "X"
+          and e.get("cat") != "gpu_user_annotation"]
+
+    def named(name):
+        return [e for e in xs if e["name"] == name]
+
+    def inside(a, b):
+        return (a["tid"] == b["tid"] and b["ts"] <= a["ts"]
+                and a["ts"] + a["dur"] <= b["ts"] + b["dur"])
+
+    calls = named(profiling.PREFIX + "runtime.call")
+    if len(calls) != steps:
+        raise AssertionError(f"{len(calls)} runtime.call ranges for {steps} "
+                             "calls")
+    for child in ("copy_in", "replay", "clone_out"):
+        ranges = named(profiling.PREFIX + "runtime." + child)
+        if len(ranges) != steps or not all(
+                any(inside(r, c) for c in calls) for r in ranges):
+            raise AssertionError(f"runtime.{child}: {len(ranges)} ranges, "
+                                 "not one inside each runtime.call")
+    keys = sorted(named(profiling.PREFIX + "runtime.key"),
+                  key=lambda e: e["ts"])
+    calls.sort(key=lambda e: e["ts"])
+    if len(keys) != steps or not all(
+            k["tid"] == c["tid"] and k["ts"] + k["dur"] <= c["ts"]
+            for k, c in zip(keys, calls)):
+        raise AssertionError(f"runtime.key: {len(keys)} ranges, not one "
+                             "before each runtime.call")
+    replays = named(profiling.PREFIX + "runtime.replay")
+    launches = [e for e in named("cudaGraphLaunch")
+                if any(inside(e, r) for r in replays)]
+    if len(launches) != steps:
+        raise AssertionError(f"{len(launches)} cudaGraphLaunch inside the "
+                             f"{steps} runtime.replay ranges")
+    starts = {}
+    for e in xs:
+        if e.get("cat") == "kernel":
+            c = e.get("args", {}).get("correlation")
+            starts[c] = min(starts.get(c, e["ts"]), e["ts"])
+    for e in launches:
+        first = starts.get(e["args"]["correlation"])
+        if first is None or first < e["ts"]:
+            raise AssertionError("a graph launch's kernels are missing or "
+                                 "start before it on the trace's timeline")
+    spans = {}
+    for path, t in after.items():
+        if not path.startswith("runtime."):
+            continue
+        t0 = before.get(path, profiling.SpanTotal(0, 0.0, 0.0))
+        n = t.calls - t0.calls
+        if n == 0:   # a capture of the set-up before the loop
+            continue
+        spans[path] = dict(calls=n, us=(t.total_s - t0.total_s) * 1e6 / n,
+                           self_us=(t.self_s - t0.self_s) * 1e6 / n)
+    return spans
+
+
 def check_two_graphs(torch, err, u8, sms, rounds=40):
     """Two CUDA graphs, each a chain of four split-K q8gemm launches
     (BERT's out projection at batch 1, 128x768->768) under weights of its
@@ -2983,6 +3071,7 @@ def main() -> int:
     from qnnpack_tpu_torch.entry import entry, input_shape
     from qnnpack_tpu_torch.kernels import _build
     from qnnpack_tpu_torch.serving import HealthMonitor
+    from qnnpack_tpu_torch.utils import profiling
 
     HBM_BYTES_PER_S, INT8_OPS_PER_S = card_peaks()
 
@@ -2998,8 +3087,9 @@ def main() -> int:
         "int8 TOP/s (config.tune_params)")
     t0 = time.perf_counter()
     _build.load_library()
+    nvcc_seconds = (profiling.span_total("library.build") or (0, 0.0))[1]
     log(f"    kernels built in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.build_seconds:.1f} s)")
+        f"(nvcc {nvcc_seconds:.1f} s)")
     ptxas = [line.strip() for line in _build.build_log.splitlines()
              if "registers" in line or "spill" in line or "---" in line
              or "Compiling entry" in line]
@@ -3132,6 +3222,14 @@ def main() -> int:
     log("[9] captured forwards (CUDA graphs, ops.base.jit_forward)")
     log(f"    initialize(): {initialize()}")
     check_captured(torch, models, per_shape, forward, rng)
+    runtime_spans = check_runtime_spans(torch, models, rng)
+    call = runtime_spans["runtime.call"]
+    log("[9] mobilenet_v2 b128 jit_forward under profiling.trace(): each "
+        "call a qnnpack::runtime.call range with its three children after "
+        "its runtime.key, each "
+        "cudaGraphLaunch inside runtime.replay before its kernels; host "
+        f"{call['us']:.1f} us a call (profiler on; "
+        "chiprun_out/runtime_spans/trace.json)")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     check_two_graphs(torch, max_err, lambda *shape: rng.integers(
         0, 256, shape, dtype=np.int64).astype(np.uint8), sms)
@@ -3174,7 +3272,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        nvcc_seconds=_build.build_seconds, ptxas=ptxas,
+        nvcc_seconds=nvcc_seconds, ptxas=ptxas, runtime_spans=runtime_spans,
         launch_floor_ms=floor_ms, forward=forward, timing=timing,
         ops_graph=ops_graph, row_sums=row_sum_timing,
         parallel=dict(rows=parallel_rows, forward=parallel_forward),

@@ -19,7 +19,6 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -64,7 +63,6 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_log = ""
-build_seconds = 0.0
 
 
 def find_nvcc() -> str:
@@ -122,16 +120,19 @@ def build(path: Path) -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _lib, build_log, build_seconds
-    with _lock:
+    """The kernel library, built on first use.  The first call records the
+    span library.load, with library.build inside it when nvcc runs."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    from ..utils import profiling
+    with profiling.span("library.load"), _lock:
         if _lib is not None:
             return _lib
         path = library_path()
         if not path.exists():
-            t0 = time.perf_counter()
-            build_log = build(path)
-            build_seconds = time.perf_counter() - t0
+            with profiling.span("library.build"):
+                build_log = build(path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

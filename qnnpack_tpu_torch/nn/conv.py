@@ -152,28 +152,32 @@ def pack_conv_weights(kernel, bias, input_zero_point: int,
     For `transposed` (deconvolution) the kernel is flipped spatially, as
     the JAX package packs it; the folded bias, a sum over every tap, is
     the same either way.  A record that is already flipped (one from the
-    JAX package or a checkpoint) is not packed again.
+    JAX package or a checkpoint) is not packed again.  Recorded as one
+    span setup.pack (utils/profiling.py).
     """
-    kernel = as_tensor(kernel, torch.uint8, device)
-    o, kh, kw, icpg = kernel.shape
-    if o % groups:
-        raise ValueError("output channels must divide evenly into groups")
-    if bias is None:
-        bias = torch.zeros((o,), dtype=torch.int32, device=kernel.device)
-    bias = as_tensor(bias, torch.int32, kernel.device)
+    from ..utils import profiling
+    with profiling.span("setup.pack"):
+        kernel = as_tensor(kernel, torch.uint8, device)
+        o, kh, kw, icpg = kernel.shape
+        if o % groups:
+            raise ValueError("output channels must divide evenly into groups")
+        if bias is None:
+            bias = torch.zeros((o,), dtype=torch.int32, device=kernel.device)
+        bias = as_tensor(bias, torch.int32, kernel.device)
 
-    w = u8_to_biased_i8(kernel)  # [O, Kh, Kw, Icpg]
-    w_sums = w.to(torch.int64).sum(dim=(1, 2, 3))  # [O]
-    bias_folded = fold_bias(bias, w_sums, kh * kw * icpg, input_zero_point,
-                            kernel_zero_point)
-    if transposed:
-        w = w.flip(1, 2)
-    return PackedConvWeights(
-        w=w.permute(1, 2, 3, 0).contiguous(), bias_folded=bias_folded,
-        kernel_height=int(kh), kernel_width=int(kw),
-        group_input_channels=int(icpg), group_output_channels=int(o // groups),
-        groups=int(groups), input_zero_point=int(input_zero_point),
-        kernel_zero_point=int(kernel_zero_point))
+        w = u8_to_biased_i8(kernel)  # [O, Kh, Kw, Icpg]
+        w_sums = w.to(torch.int64).sum(dim=(1, 2, 3))  # [O]
+        bias_folded = fold_bias(bias, w_sums, kh * kw * icpg,
+                                input_zero_point, kernel_zero_point)
+        if transposed:
+            w = w.flip(1, 2)
+        return PackedConvWeights(
+            w=w.permute(1, 2, 3, 0).contiguous(), bias_folded=bias_folded,
+            kernel_height=int(kh), kernel_width=int(kw),
+            group_input_channels=int(icpg),
+            group_output_channels=int(o // groups), groups=int(groups),
+            input_zero_point=int(input_zero_point),
+            kernel_zero_point=int(kernel_zero_point))
 
 
 def _pad_input(a_u8, padding, value: int):

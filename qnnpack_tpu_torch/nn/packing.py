@@ -129,17 +129,22 @@ def pack_gemm_weights(kernel, bias, input_zero_point: int,
 
     kernel: uint8 [N, K] (FC layout: [output_channels][input_channels])
     bias:   int32 [N] (or None for zero bias)
-    """
-    kernel = as_tensor(kernel, torch.uint8, device)
-    n, k = kernel.shape
-    if bias is None:
-        bias = torch.zeros((n,), dtype=torch.int32, device=kernel.device)
-    bias = as_tensor(bias, torch.int32, kernel.device)
 
-    w = u8_to_biased_i8(kernel).t().contiguous()  # [K, N] int8
-    col_sums = w.to(torch.int64).sum(dim=0)  # [N]
-    bias_folded = fold_bias(bias, col_sums, k, input_zero_point,
-                            kernel_zero_point)
-    return PackedGemmWeights(w=w, bias_folded=bias_folded, k=int(k), n=int(n),
-                             input_zero_point=int(input_zero_point),
-                             kernel_zero_point=int(kernel_zero_point))
+    Recorded as one span setup.pack (utils/profiling.py).
+    """
+    from ..utils import profiling
+    with profiling.span("setup.pack"):
+        kernel = as_tensor(kernel, torch.uint8, device)
+        n, k = kernel.shape
+        if bias is None:
+            bias = torch.zeros((n,), dtype=torch.int32, device=kernel.device)
+        bias = as_tensor(bias, torch.int32, kernel.device)
+
+        w = u8_to_biased_i8(kernel).t().contiguous()  # [K, N] int8
+        col_sums = w.to(torch.int64).sum(dim=0)  # [N]
+        bias_folded = fold_bias(bias, col_sums, k, input_zero_point,
+                                kernel_zero_point)
+        return PackedGemmWeights(
+            w=w, bias_folded=bias_folded, k=int(k), n=int(n),
+            input_zero_point=int(input_zero_point),
+            kernel_zero_point=int(kernel_zero_point))

@@ -38,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..status import (InvalidParameterError, UninitializedError,
                       UnsupportedParameterError)
+from ..utils.profiling import count, span
 
 
 def check(cond: bool, message: str):
@@ -196,15 +197,16 @@ def capture(run, device) -> Capture:
     kernel's shared-memory attribute) outside the capture.  During it, the
     split-K counters of every launch are the graph's own
     (kernels/q8gemm.py:graph_counters), so two graphs replayed at once on
-    two streams never share a counter."""
+    two streams never share a counter.  Recorded as the span graph.capture
+    and the counter graph.captures (utils/profiling.py)."""
     from ..config import initialize
     from ..kernels import launch_counts
     from ..kernels.q8gemm import graph_counters, new_counters
 
-    initialize(device)
-    stream = torch.cuda.Stream(device)
-    stream.wait_stream(torch.cuda.current_stream(device))
-    with torch.no_grad():
+    with span("graph.capture"), torch.no_grad():
+        initialize(device)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             run()
         stream.synchronize()
@@ -215,6 +217,7 @@ def capture(run, device) -> Capture:
                 graph, stream=stream, capture_error_mode="thread_local"):
             output = run()
         after = launch_counts()
+    count("graph.captures")
     return Capture(graph, output, {k: after[k] - before[k] for k in after},
                    counters)
 
@@ -225,7 +228,10 @@ class GraphRunner:
     its static output, so an output the caller keeps is never overwritten
     by the next call (JAX returns a fresh array too).  Calls on several
     streams or threads run one after another: each waits on the device for
-    the last replay to end."""
+    the last replay to end.  While a profiler is on, a call is recorded as
+    the span runtime.call, with runtime.copy_in, runtime.replay and
+    runtime.clone_out inside it (utils/profiling.py); with none on, a
+    call records nothing (a b1 call is ~0.1 ms of host work)."""
 
     def __init__(self, fn, args, input_index):
         device = args[input_index[0]].device
@@ -243,12 +249,16 @@ class GraphRunner:
 
     def __call__(self, *inputs):
         stream = torch.cuda.current_stream(self.device)
-        with self._lock, torch.no_grad():
+        with span("runtime.call", traced_only=True), self._lock, \
+                torch.no_grad():
             stream.wait_event(self._done)
-            for buf, x in zip(self.inputs, inputs):
-                buf.copy_(x)
-            self.graph.replay()
-            out = _map_tensors(torch.clone, self.output)
+            with span("runtime.copy_in", traced_only=True):
+                for buf, x in zip(self.inputs, inputs):
+                    buf.copy_(x)
+            with span("runtime.replay", traced_only=True):
+                self.graph.replay()
+            with span("runtime.clone_out", traced_only=True):
+                out = _map_tensors(torch.clone, self.output)
             self._done.record(stream)
         return out
 
@@ -279,7 +289,8 @@ class JitForward:
                      else _param_key(a, self._memo) for a in args)
 
     def _runner(self, args, input_index) -> GraphRunner:
-        key = self.key(*args)
+        with span("runtime.key", traced_only=True):
+            key = self.key(*args)
         with self._lock:
             runner = self.graphs.get(key)
             if runner is None:
