@@ -23,7 +23,10 @@ and the graph runtime.  Phases, each of which raises on any failure:
      and rows off a 4-byte boundary; for q8gemm and q8conv every block
      shape and split-K plan of kernels/q8gemm.py:tile_plan (each must be
      exercised), K = 1 to 70,000 (sums past 2^31), bases 8 bytes off 16,
-     split-K q8gemm launches in flight on two streams at once; every
+     split-K q8gemm launches in flight on two streams at once, q8gemm's
+     wgmma instance (check_wgmma: BERT's four b128 projections, ragged M
+     and N, kzp' 0 and 103, all five schemes, a CUDA-graph replay, each
+     launch counted in the recorder's q8gemm.wgmma); every
      instance of q8dwconv (4 or 1 channels a thread x 3x3 stride 1, 3x3
      stride 2 or any window) and both block shapes of q8stem must run, as
      the wrappers record what each launch named to its kernel
@@ -324,6 +327,20 @@ def gemm_plan(m, n, k, groups, sms):
     return tile_plan(m, n, round_up(k) // K_STEP, groups, sms)
 
 
+def q8gemm_plan(m, n, k, sms):
+    """The plan of a plain q8gemm launch of M x K x N on the card, A
+    16-byte aligned: the wgmma instance's where kernels/q8gemm.py
+    wgmma_route sends it, gemm_plan's otherwise."""
+    from qnnpack_tpu_torch.config import tune_params
+    from qnnpack_tpu_torch.kernels.q8gemm import (WGMMA_TILE, ridge_of,
+                                                  wgmma_route)
+    from qnnpack_tpu_torch.nn.packing import K_STEP, round_up
+    steps = round_up(k) // K_STEP
+    if wgmma_route(m, n, k, steps, ridge_of(tune_params())):
+        return WGMMA_TILE, 1, steps
+    return gemm_plan(m, n, k, 1, sms)
+
+
 def conv_plan(p, m, sms):
     """The q8conv wrapper's plan for packed conv `p` over M output pixels."""
     from qnnpack_tpu_torch.kernels.q8conv import conv_steps
@@ -339,10 +356,11 @@ def dw_tag(inst):
 
 
 def plan_tag(plan):
-    from qnnpack_tpu_torch.kernels.q8gemm import DEEP_TILE, TILES
+    from qnnpack_tpu_torch.kernels.q8gemm import DEEP_TILE, TILES, WGMMA_TILE
     tile, splits, _ = plan
     bm, bn = TILES[tile]
     return (f"[{bm}x{bn}" + (" deep" if tile == DEEP_TILE else "")
+            + (" wgmma" if tile == WGMMA_TILE else "")
             + (f", split {splits}]" if splits > 1 else "]"))
 
 
@@ -461,9 +479,9 @@ def check_kernels(torch, err):
          "fp32", {}),
         ("bert qkv b8 1024x768->2304", 1024, 768, 2304, 128, 128, "fp32",
          {}),
-        ("bert out b128 16384x768->768 (128x128 deep)", 16384, 768, 768,
-         128, 128, "fp32", {}),
         ("16384x320->256 (128x128)", 16384, 320, 256, 121, 103, "q31", {}),
+        ("16384x512->256 deep, below the ridge", 16384, 512, 256, 121, 103,
+         "fp32", {}),
         ("K=960 deep, ragged last stage 16384x960->144", 16384, 960, 144,
          128, 128, "fp32", relu6),
         ("49x4608->65 kzp 90 gemmlowp (split-K, row sums)", 49, 4608, 65,
@@ -485,7 +503,7 @@ def check_kernels(torch, err):
                               rp)
         got = K.q8gemm_cuda(a.to(cuda), pack_gemm_weights(
             kernel, bias, izp, kzp, device=cuda), rp)
-        plan = gemm_plan(m, n, k, 1, sms)
+        plan = q8gemm_plan(m, n, k, sms)
         plans.add(("q8gemm", plan[0], plan[1] > 1))
         check("q8gemm", f"{label} {plan_tag(plan)}", got, want)
 
@@ -517,6 +535,7 @@ def check_kernels(torch, err):
           K.q8gemm_plain(a, pack_gemm_weights(kernel, None, 255, 0), rp))
     del a, kernel
     check_two_streams(torch, err, u8, sms)
+    check_wgmma(torch, err, u8)
 
     # q8conv: (label, B, H, W, C, O, k, stride, padding, dilation, izp,
     # kzp, scheme, rp kwargs)
@@ -1457,6 +1476,101 @@ def check_row_sums(torch, err, u8, sms):
     return timing
 
 
+def check_wgmma(torch, err, u8):
+    """q8gemm's wgmma instance (csrc/wgmma_tile.cuh) on the card: each
+    launch must route there (the recorder's counter q8gemm.wgmma) and
+    equal q8gemm_plain, run on the card (its float64 product is exact),
+    byte for byte.  BERT's four b128 projections; ragged M (16,383 and
+    16,385 rows), N = 776 (ends inside a block) and K = 1,040 (a last
+    stage of 16 bytes, the rest zero-filled by TMA); kzp' 0 and 103
+    (kernel zero points 128 and 231); all five requant schemes,
+    per-channel scales among them; and one launch captured in a CUDA graph
+    and replayed on fresh inputs."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.kernels.q8gemm import WGMMA_TILE
+    from qnnpack_tpu_torch.nn.packing import pack_gemm_weights
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+    from qnnpack_tpu_torch.quant.params import compute_per_channel_fp32_params
+    from qnnpack_tpu_torch.utils import profiling
+    cuda = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def rparams(scheme, n, **kw):
+        if scheme == "pc":
+            return compute_per_channel_fp32_params(
+                np.random.default_rng(n).uniform(2e-5, 4e-4, n), 117)
+        return make_requant_params(scheme, 0.00011, 117, **kw)
+
+    def routed():
+        return profiling.counters().get("q8gemm.wgmma", 0)
+
+    # (label, M, K, N, izp, kzp, scheme, rp kwargs)
+    cases = [
+        ("bert b128 qkv", 16384, 768, 2304, 128, 128, "fp32", {}),
+        ("bert b128 out", 16384, 768, 768, 128, 128, "fp32", {}),
+        ("bert b128 ffn1", 16384, 768, 3072, 128, 128, "fp32",
+         dict(qmin=128)),
+        ("bert b128 ffn2", 16384, 3072, 768, 128, 128, "fp32", {}),
+        ("bert b8 ffn2, 24 tiles kzp' 103", 1024, 3072, 768, 121, 231,
+         "q31", {}),
+        ("ragged M 16383 kzp' 103 q31", 16383, 768, 768, 121, 231, "q31",
+         {}),
+        ("ragged M 16385 kzp' 103 precise", 16385, 768, 768, 7, 231,
+         "precise", {}),
+        ("N 776 kzp' 0 gemmlowp", 16384, 768, 776, 250, 128, "gemmlowp",
+         {}),
+        ("N 776 M 16385 kzp' 103 per-channel", 16385, 768, 776, 121, 231,
+         "pc", {}),
+        ("K 1040 kzp' 103 fp32", 16384, 1040, 1024, 3, 231, "fp32", {}),
+        ("q31 kzp' 0 ffn2", 16384, 3072, 768, 128, 128, "q31", {}),
+        ("gemmlowp kzp' 103 ffn1", 16384, 768, 3072, 250, 231, "gemmlowp",
+         {}),
+    ]
+    for label, m, k, n, izp, kzp, scheme, rkw in cases:
+        kernel = u8(n, k)
+        bias = np.random.default_rng(m + n).integers(
+            -90000, 90000, n).astype(np.int32)
+        p = pack_gemm_weights(kernel, bias, izp, kzp, device=cuda)
+        rp = rparams(scheme, n, **rkw)
+        a = torch.from_numpy(u8(m, k)).to(cuda)
+        before = routed()
+        got = K.q8gemm_cuda(a, p, rp)
+        if routed() != before + 1:
+            raise AssertionError(f"q8gemm wgmma {label}: not routed to the "
+                                 "wgmma instance")
+        plan = q8gemm_plan(m, n, k, sms)
+        compare(torch, err, "q8gemm", f"wgmma {label} {plan_tag(plan)}",
+                got, K.q8gemm_plain(a, p, rp))
+        if plan[0] != WGMMA_TILE:
+            raise AssertionError(f"q8gemm wgmma {label}: plan {plan}")
+        del a, got
+    # Captured once, replayed on two fresh inputs.
+    m, k, n = 16385, 768, 776
+    p = pack_gemm_weights(u8(n, k), None, 121, 231, device=cuda)
+    rp = rparams("q31", n)
+    x = torch.from_numpy(u8(m, k)).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.q8gemm_cuda(x, p, rp)   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = routed()
+    with torch.cuda.graph(graph):
+        y = K.q8gemm_cuda(x, p, rp)
+    if routed() != before + 1:
+        raise AssertionError("q8gemm wgmma graph: capture not routed")
+    for trial in range(2):
+        fresh = torch.from_numpy(u8(m, k)).to(cuda)
+        x.copy_(fresh)
+        graph.replay()
+        compare(torch, err, "q8gemm",
+                f"wgmma graph replay {trial} {m}x{k}->{n}", y,
+                K.q8gemm_plain(fresh, p, rp))
+    del graph, x, y
+    torch.cuda.empty_cache()
+
+
 def check_float_ops(torch, rng):
     """nn/float_ops.py on the card against its CPU run, at tests/
     test_float_ops.py's shapes and within its tolerances (fp32: rtol and
@@ -1578,7 +1692,7 @@ def bert_calls(torch, params, spec, x):
     def gemm(name, a2, p, rp):
         m, k = a2.shape
         return dict(kernel="q8gemm", label=f"{name} {m}x{k}->{p.n}",
-                    plan=plan_tag(gemm_plan(m, p.n, k, 1, sms)),
+                    plan=plan_tag(q8gemm_plan(m, p.n, k, sms)),
                     run=lambda: K.q8gemm_cuda(a2, p, rp),
                     plain=lambda: K.q8gemm_plain(a2, p, rp),
                     library=int_mm_yardstick(torch, a2, p.w),
@@ -1696,7 +1810,7 @@ def kernel_calls(torch, model, params, spec, x):
             g, a2 = plan.record, a.reshape(-1, a.shape[-1])
             m, k = a2.shape
             yield dict(kernel="q8gemm", label=f"{name} deconv {m}x{k}->{g.n}",
-                       plan=plan_tag(gemm_plan(m, g.n, k, 1, sms)),
+                       plan=plan_tag(q8gemm_plan(m, g.n, k, sms)),
                        run=lambda a2=a2, g=g, r=cs.rparams: K.q8gemm_cuda(
                            a2, g, r),
                        plain=lambda a2=a2, g=g, r=cs.rparams: K.q8gemm_plain(
@@ -1759,7 +1873,7 @@ def kernel_calls(torch, model, params, spec, x):
             a2 = a.reshape(-1, a.shape[-1])
             m, k = a2.shape
             yield dict(kernel="q8gemm", label=f"{name} {m}x{k}->{p.n}",
-                       plan=plan_tag(gemm_plan(m, p.n, k, 1, sms)),
+                       plan=plan_tag(q8gemm_plan(m, p.n, k, sms)),
                        run=lambda a2=a2, p=p, l=layer: K.q8gemm_cuda(
                            a2, p, l.rparams),
                        plain=lambda a2=a2, p=p, l=layer: K.q8gemm_plain(

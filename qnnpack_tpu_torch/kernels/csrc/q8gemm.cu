@@ -19,13 +19,27 @@
 // the row sum.
 //
 // What bounds it: MobileNetV2's and ShuffleNet's 1x1 layers (K 16..960)
-// move more bytes than they do int8 operations per byte at the card's ridge
-// and are bound by memory; BERT's projections (K = 768, 3072; M = 16,384 at
-// batch 128) are bound by the tensor cores.  Design: the tensor-core tile of
-// imma_tile.cuh (u8 x s8 mma.sync fed by ldmatrix from a cp.async ring,
-// four block shapes and split-K picked by the wrapper), with an instance of
-// its own for the 16-byte copies of the main paths.  wgmma with TMA and a
-// producer warp is the step after this one.
+// do fewer int8 operations a byte than the card's ridge (1,979 TOP/s over
+// 3.35 TB/s, about 591) and are bound by memory; BERT's projections at
+// batch 128 (K = 768, 3072; M = 16,384; 750-1,185 operations a byte) are
+// bound by the tensor cores.  So there are two instances, and the wrapper
+// (kernels/q8gemm.py wgmma_route) picks one by the launch's operations a
+// byte, from its shape and the card's peaks:
+//   - at or above the ridge, the wgmma instance of wgmma_tile.cuh (tile id
+//     4): a persistent, warp-specialised block whose producer warp keeps
+//     TMA loads in flight and whose two consumer warpgroups run wgmma, the
+//     only way to the tensor cores' full rate.  It takes the plain
+//     contract only, unsplit, with A 16-byte aligned and K % 16 == 0
+//     (TMA's rules).  Its requantizing epilogue overlaps no product, which
+//     bounds it at K = 768 (BERT's qkv, out and ffn1) more than the tensor
+//     cores do;
+//   - below it, and for every row-sum, partial or split launch, the
+//     tensor-core tile of imma_tile.cuh (u8 x s8 mma.sync fed by ldmatrix
+//     from a cp.async ring, four block shapes and split-K picked by the
+//     wrapper), with an instance of its own for the 16-byte copies of the
+//     main paths.  mma.sync reaches only a part of the tensor cores' rate
+//     (340-490 TOP/s at BERT's batch-128 shapes), which the memory-bound
+//     launches never need.
 //
 // Two more instances of each shape serve the row-sum pair of nn/gemm.py
 // (the JAX package's q8gemm_row_sums_out / q8gemm_presummed):
@@ -51,6 +65,7 @@
 
 #include "device_guard.cuh"
 #include "imma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -96,6 +111,10 @@ struct RowSumGemmArgs : GemmArgs {
 struct PartialGemmArgs : GemmArgs {
   int32_t* acc_out;  // kPartial: [M, N] int32
 };
+
+// The wgmma instance's tile id, 128 x 256 (kernels/q8gemm.py TILES); 0-3
+// are imma_tile.cuh's.
+constexpr int kWgmmaTile = 4;
 
 // W = 16: every A copy is 16 bytes (the main paths' case, compiled on its
 // own so that it carries no other path); W = 0: the width is `width`.
@@ -227,6 +246,64 @@ cudaError_t launch_tile(const Args& p, int tile, int device,
   }
 }
 
+// The wgmma instance (wgmma_tile.cuh): one persistent block an SM, at most
+// one a tile.
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(qnn::wgmma::kThreads, 1)
+    q8gemm_kernel(const __grid_constant__ qnn::wgmma::Args p) {
+  extern __shared__ __align__(16) uint8_t ring[];
+  qnn::wgmma::run<qnn::wgmma::Tile<BN, STAGES>>(p, ring);
+}
+
+template <class T>
+cudaError_t launch_wgmma(const GemmArgs& g, int device,
+                         cudaStream_t stream) {
+  namespace wg = qnn::wgmma;
+  void (*const kernel)(const wg::Args) = q8gemm_kernel<T::BN, T::kStages>;
+  static unsigned ready = 0;
+  static int sms[32] = {};
+  if (device < 0 || device >= 32) return cudaErrorInvalidDevice;
+  if (!(ready & (1u << device))) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms[device],
+                                   cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err != cudaSuccess) return err;
+    ready |= 1u << device;  // a race only sets it twice
+  }
+  wg::Args p{};
+  if (!wg::encode_rows(&p.a_map, g.a, g.k, g.m, wg::BM) ||
+      !wg::encode_rows(&p.w_map, g.w, g.kp, g.n, T::BN)) {
+    return cudaErrorInvalidValue;
+  }
+  p.bias_c = g.bias_c;
+  p.scales = g.scales;
+  p.out = g.out;
+  p.m = static_cast<int>(g.m);
+  p.n = g.n;
+  p.kp = g.kp;
+  p.kzp_biased = g.kzp_biased;
+  p.tiles_n = (g.n + T::BN - 1) / T::BN;
+  const int64_t tiles = (g.m + wg::BM - 1) / wg::BM * p.tiles_n;
+  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  p.tiles = static_cast<int>(tiles);
+  p.pairs = reinterpret_cast<uintptr_t>(g.bias_c) % 8 == 0 &&
+            reinterpret_cast<uintptr_t>(g.scales) % 8 == 0;
+  p.rp = g.rp;
+  const int grid = p.tiles < sms[device] ? p.tiles : sms[device];
+  kernel<<<grid, wg::kThreads, T::kSmemBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The wgmma instance takes the plain contract, unsplit, A 16-byte aligned
+// with K % 16 == 0 (copy width 16), M and the tile count within int.
+bool wgmma_ok(const GemmArgs& g) {
+  return g.sp.splits == 1 && g.width == 16 &&
+         g.m <= (int64_t{1} << 31) - qnn::wgmma::BM;
+}
+
 // The launch plan and weights are usable: kp a whole number of K steps
 // covering K, every split within one int32 chain and none empty, scratch
 // for a split launch, 16-byte aligned weights.
@@ -243,7 +320,9 @@ bool plan_ok(const void* w, int k, int kp, int splits, int steps_per_split,
 
 }  // namespace
 
-// tile: 0 = 128 x 128, 1 = 128 x 64, 2 = 64 x 64 (kernels/q8gemm.py TILES).
+// tile: 0 = 128 x 128, 1 = 128 x 64, 2 = 64 x 64, 3 = 128 x 128 with
+// 128-byte stages, 4 = the wgmma instance's 128 x 256 (kernels/q8gemm.py
+// TILES; tile 4 takes neither split nor row sums).
 // splits > 1 needs `workspace` ([tiles, splits, BM * BN + BM] int32) and
 // `counters` ([tiles] int32, all 0; left all 0).  At most one of
 // `row_sums_in` (the consumer's [M] sums of A - 128) and `row_sums_out`
@@ -277,6 +356,12 @@ extern "C" int qnn_q8gemm(int device, const void* a, const void* w,
                              static_cast<int32_t*>(workspace),
                              static_cast<int*>(counters)}};
   const auto s = static_cast<cudaStream_t>(stream);
+  if (tile == kWgmmaTile) {
+    return static_cast<int>(
+        row_sums_in == nullptr && row_sums_out == nullptr && wgmma_ok(p)
+            ? launch_wgmma<qnn::wgmma::Tile128x256>(p, device, s)
+            : cudaErrorInvalidValue);
+  }
   if (row_sums_in == nullptr && row_sums_out == nullptr) {
     return static_cast<int>(launch_tile<kPlain>(p, tile, device, s));
   }

@@ -125,6 +125,29 @@ __device__ __forceinline__ uint8_t requantize(int32_t x, const Requant& p,
   }
 }
 
+// requantize() for one accumulator x, the scheme S fixed at compile time
+// (S < 0: rp.scheme, read at run time), as the wgmma epilogue takes it.
+// The fp32 schemes take one conversion where requant_fp32 takes three (the
+// card converts at an eighth of its float rate) and give its bytes: they
+// clamp before rounding, which gives the same value because the bounds
+// lo = qmin - zp and hi = qmax - zp are integers, and then a value within
+// +-255 rounds half to even and becomes an integer in one float add of
+// 1.5 * 2^23.
+template <int S>
+__device__ __forceinline__ uint32_t requant_one(uint32_t x, const Requant& rp,
+                                                float scale, float lo,
+                                                float hi) {
+  if constexpr (S == kFP32 || S == kFP32PerChannel) {
+    const float f = fminf(
+        fmaxf(__fmul_rn(__int2float_rn(static_cast<int32_t>(x)), scale), lo),
+        hi);
+    return static_cast<uint32_t>(__float_as_int(__fadd_rn(f, 12582912.0f)) -
+                                 0x4B400000 + rp.zero_point);
+  } else {
+    return requantize(static_cast<int32_t>(x), rp, scale);
+  }
+}
+
 // Average-pool requantization (qnnp_avgpool_quantize): 64-bit product, -1
 // for negative values, + 2^(shift-1), arithmetic shift, low 32 bits.  lo/hi
 // are the output bounds less the zero point.

@@ -8,7 +8,15 @@ design and what bounds it, is csrc/q8gemm.cu.
 tensors it launches the kernel or raises; there is no fallback.
 
 `tile_plan` picks the kernel's block shape and split-K for q8gemm and
-q8conv alike (csrc/imma_tile.cuh).
+q8conv alike (csrc/imma_tile.cuh).  `wgmma_route` says which of q8gemm's
+plain launches take the wgmma instance (csrc/wgmma_tile.cuh): those that
+do at least the card's ridge of int8 operations a byte
+(`config.tune_params`: int8 peak over memory rate), so that the tensor
+cores bound them, with A and K as TMA needs them and K within one int32
+chain.  Every other launch, and every launch of q8conv, runs the mma.sync
+tile.  `_launch` counts each q8gemm launch
+in the recorder's counter q8gemm.launches (utils/profiling.py) and each
+that took the wgmma instance in q8gemm.wgmma.
 
 `q8gemm_row_sums_cuda` and `q8gemm_presummed_cuda` are the row-sum pair
 (the JAX package's nn/gemm.py:q8gemm_row_sums_out / q8gemm_presummed): the
@@ -36,10 +44,12 @@ from ..nn.packing import K_STEP, PackedGemmWeights, wrap_int32
 from ..nn.requant_dispatch import apply_requant
 from . import _build
 
-# (BM, BN) of csrc/imma_tile.cuh's block shapes, by the C entry's tile id.
-# Tile 3 is tile 0 with 128-byte ring stages (3 of them, not 4 of 64).
-TILES = ((128, 128), (128, 64), (64, 64), (128, 128))
+# (BM, BN) of the kernel's block shapes, by the C entry's tile id: 0-3
+# csrc/imma_tile.cuh's (tile 3 is tile 0 with 128-byte ring stages, 3 of
+# them, not 4 of 64), 4 the wgmma instance's (csrc/wgmma_tile.cuh).
+TILES = ((128, 128), (128, 64), (64, 64), (128, 128), (128, 256))
 DEEP_TILE = 3
+WGMMA_TILE = 4
 # K (in steps of 64 bytes) from which the 128 x 128 shape takes 128-byte
 # stages: 7-12% faster at K = 768..4608, slower at K = 320 and below
 # (H100 80GB HBM3, 700 W, scripts/bench_imma.py --tiles).
@@ -49,6 +59,43 @@ DEEP_MIN_STEPS = 8
 MAX_CHAIN_STEPS = 1024
 # A split takes at least this many K steps when splitting only for width.
 MIN_SPLIT_STEPS = 4
+
+
+def ridge_of(params) -> float:
+    """The card's ridge in int8 operations a byte of device memory: the
+    int8 peak of its config.TuneParams over its memory rate (1,979 TOP/s /
+    3.35 TB/s, about 591, on the H100); 0 for a card whose peaks are not
+    known, which routes no launch to the wgmma instance."""
+    if params.int8_peak_tops <= 0 or params.hbm_gbps <= 0:
+        return 0.0
+    return params.int8_peak_tops / params.hbm_gbps * 1e3
+
+
+@functools.lru_cache(maxsize=None)
+def _ridge(device) -> float:
+    from .. import config
+    return ridge_of(config.tune_params(device))
+
+
+def wgmma_route(m: int, n: int, k: int, steps: int, ridge: float,
+                a_ptr: int = 0, plain: bool = True) -> bool:
+    """Whether a q8gemm launch of M x K x N over `steps` K steps of 64
+    bytes takes the wgmma instance on a card of ridge `ridge`: it is the
+    plain instance (`plain`: no row sums in or out, not the partial); its
+    int8 operations a byte, 2 M N K / (M K + K N + M N), are at or above
+    the ridge; A's base `a_ptr` is 16-byte aligned and K % 16 == 0 (TMA's
+    rules); K fits one int32 chain (no split); and M fits the kernel's
+    int coordinates.
+
+    The SMs the persistent grid fills do not enter: at the ridge a launch
+    has a few dozen 128 x 256 tiles or more, and on the H100 the wgmma
+    instance was as fast as the mma.sync plan at BERT's b8 out (24 tiles,
+    559 operations a byte, below the ridge) and faster at every BERT
+    projection from b8 to b128 above it, ffn2 at b8 (24 tiles) among them
+    (scripts/bench_imma.py --instances)."""
+    return (plain and ridge > 0 and a_ptr % 16 == 0 and k % 16 == 0
+            and steps <= MAX_CHAIN_STEPS and m <= 2**31 - TILES[WGMMA_TILE][0]
+            and 2 * m * n * k >= ridge * (m * k + k * n + m * n))
 
 
 def tile_plan(m: int, n: int, steps: int, groups: int, sms: int,
@@ -309,14 +356,21 @@ def _check_launch(a_u8, packed: PackedGemmWeights) -> None:
 def _launch(a_u8, packed: PackedGemmWeights, rparams, rs_in=None,
             rs_out=None):
     """One launch of the kernel on CUDA tensors (the plain instance, or
-    with `rs_in` the consumer's, with `rs_out` the producer's)."""
+    with `rs_in` the consumer's, with `rs_out` the producer's); the plain
+    instance on the wgmma tile where wgmma_route says so."""
     _check_launch(a_u8, packed)
     kp = packed.w_kmajor.shape[1]
     m = a_u8.shape[0]
     scales, rq = _build.requant_args(rparams, packed.n, a_u8.device)
     out = torch.empty((m, packed.n), dtype=torch.uint8, device=a_u8.device)
     stream = _build.stream_of(a_u8)
-    work, plan = plan_launch(a_u8.device, stream, m, packed.n, kp // K_STEP)
+    steps = kp // K_STEP
+    wgmma = wgmma_route(m, packed.n, packed.k, steps, _ridge(a_u8.device),
+                        a_u8.data_ptr(), rs_in is None and rs_out is None)
+    if wgmma:
+        work, plan = None, [WGMMA_TILE, 1, steps, 0, 0]
+    else:
+        work, plan = plan_launch(a_u8.device, stream, m, packed.n, steps)
     _build.launch(
         "qnn_q8gemm", a_u8.device.index or 0, a_u8.data_ptr(),
         packed.w_kmajor.data_ptr(), packed.bias_c.data_ptr(),
@@ -325,6 +379,12 @@ def _launch(a_u8, packed: PackedGemmWeights, rparams, rs_in=None,
         None if rs_in is None else rs_in.data_ptr(),
         None if rs_out is None else rs_out.data_ptr(), stream)
     q8gemm_cuda.launches += 1
+    # Imported here: utils/__init__ imports nn.conv, which imports this
+    # module through kernels.q8conv.
+    from ..utils import profiling
+    profiling.count("q8gemm.launches")
+    if wgmma:
+        profiling.count("q8gemm.wgmma")
     return out
 
 

@@ -36,6 +36,11 @@ The spans and counters the port records:
                  (runtime.replay) and the output clone (runtime.clone_out),
                  and before it JitForward's key walk over the parameters
                  (runtime.key)
+  counters q8gemm.launches and q8gemm.wgmma
+                 kernels/q8gemm._launch: every launch of q8gemm's plain or
+                 row-sum instances, and those that took the wgmma instance
+                 (kernels/q8gemm.py wgmma_route); counted when launched,
+                 so an eager run and a capture count and a replay does not
 
 A port of qnnpack_tpu/utils/profiling.py besides.  `trace()` wraps
 torch.profiler (CPU and CUDA activity) and writes a Chrome trace;

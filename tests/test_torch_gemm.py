@@ -23,6 +23,7 @@ from qnnpack_tpu.nn import packing as jpacking
 from qnnpack_tpu.nn.requant_dispatch import make_requant_params as jmake
 from qnnpack_tpu.quant.params import \
     compute_per_channel_fp32_params as jper_channel
+from qnnpack_tpu_torch import config as tconfig
 from qnnpack_tpu_torch import kernels as tkernels
 from qnnpack_tpu_torch.kernels import q8gemm as tq8gemm
 from qnnpack_tpu_torch.kernels.q8gemm import q8gemm_cuda, q8gemm_plain
@@ -235,6 +236,18 @@ def test_kmajor_sum_wraps_like_int32(kzp):
     np.testing.assert_array_equal(kmajor_acc(a, tp), want)
 
 
+# The H100's ridge, 1,979 TOP/s over 3.35 TB/s (config.tune_params).
+H100_RIDGE = tq8gemm.ridge_of(tconfig._TUNE_TABLE["nvidia h100"])
+# (M, N, K) of this table's launches that take the wgmma instance on the
+# H100: BERT's four b128 projections (qkv 1,113 int8 operations a byte,
+# out 750, ffn1 and ffn2 1,185), its b8 qkv and ffn2 (737 and 768, 72 and
+# 24 tiles of 128 x 256 on 132 SMs), b16 out (647) and b64 out (734).
+# BERT's b8 out (559) stays below the ridge.
+WGMMA_SHAPES = {(16384, 2304, 768), (16384, 768, 768), (16384, 3072, 768),
+                (16384, 768, 3072), (1024, 2304, 768), (1024, 768, 3072),
+                (2048, 768, 768), (8192, 768, 768)}
+
+
 @pytest.mark.parametrize("m,n,k,groups,want_tile,want_split", [
     (16384, 2304, 768, 1, 3, False),   # BERT b128 qkv: 128-byte stages
     (6272, 1280, 320, 1, 0, False),    # MobileNetV2 b128 head: K < 512
@@ -246,6 +259,17 @@ def test_kmajor_sum_wraps_like_int32(kzp):
     (1, 1000, 512, 1, 2, True),        # FC at batch 1
     (1088, 256, 70000, 1, 2, True),    # K past 65,536: split for exactness
     (1, 1, 1, 1, 2, False),
+    (16384, 768, 768, 1, 3, False),    # BERT b128 out
+    (16384, 3072, 768, 1, 3, False),   # BERT b128 ffn1
+    (16384, 768, 3072, 1, 3, False),   # BERT b128 ffn2
+    (128, 2304, 768, 1, 2, False),     # BERT b1 qkv
+    (6272, 160, 960, 1, 1, False),     # MobileNetV2 b128 project 960->160
+    (128, 1000, 512, 1, 2, True),      # ResNet-18 b128 FC
+    (1024, 2304, 768, 1, 3, False),    # BERT b8 qkv
+    (1024, 768, 3072, 1, 2, False),    # BERT b8 ffn2
+    (2048, 768, 768, 1, 1, False),     # BERT b16 out
+    (8192, 768, 768, 1, 3, False),     # BERT b64 out
+    (1024, 768, 768, 1, 2, False),     # BERT b8 out
 ])
 def test_tile_plan(m, n, k, groups, want_tile, want_split):
     steps = tpacking.round_up(k) // tpacking.K_STEP
@@ -258,6 +282,62 @@ def test_tile_plan(m, n, k, groups, want_tile, want_split):
     bm, bn = tq8gemm.TILES[tile]
     blocks = -(-m // bm) * -(-n // bn) * groups
     assert splits == 1 or blocks * splits <= 132 or k > 65536
+    # The route on the H100: only launches at or above the ridge, however
+    # few SMs their tiles fill (a grouped launch is q8conv's, which never
+    # takes the wgmma instance).
+    route = groups == 1 and tq8gemm.wgmma_route(m, n, k, steps, H100_RIDGE)
+    assert route == ((m, n, k) in WGMMA_SHAPES)
+
+
+@pytest.mark.parametrize("case,kwargs,want", [
+    ("aligned plain", {}, True),
+    ("A base 8 bytes off 16", dict(a_ptr=0x1000 + 8), False),
+    ("A base 16-byte aligned", dict(a_ptr=0x1000 + 16), True),
+    ("K % 16 != 0", dict(k=776), False),
+    ("row-sum producer or consumer", dict(plain=False), False),
+    ("partial", dict(plain=False), False),
+    ("K past one int32 chain", dict(k=65600), False),
+    ("generic card", dict(ridge=0.0), False),
+    ("M past the kernel's int coordinates", dict(m=2**31), False),
+    ("BERT b8 ffn1: 96 tiles on 132 SMs", dict(m=1024), True),
+    ("BERT b8 out: 559 operations a byte", dict(m=1024, n=768), False),
+])
+def test_wgmma_route_gates(case, kwargs, want):
+    """BERT b128 ffn1, 1,185 int8 operations a byte, under each gate of
+    the route: A's alignment and K % 16 (TMA), the plain instance only
+    (the row-sum pair and the partial keep mma.sync), one chain, a card
+    with known peaks, the ridge (b8 out falls below it; b8 ffn1 routes
+    although its 96 tiles leave SMs idle)."""
+    args = dict(m=16384, n=3072, k=768, ridge=H100_RIDGE)
+    args.update(kwargs)
+    args["steps"] = tpacking.round_up(args["k"]) // tpacking.K_STEP
+    assert tq8gemm.wgmma_route(**args) is want
+
+
+@pytest.mark.parametrize("peaks,want", [
+    ((1979.0, 3350.0), {"qkv", "out", "ffn1", "ffn2"}),   # the H100, ~591
+    ((1979.0, 2500.0), {"qkv", "ffn1", "ffn2"}),          # ridge ~792
+    ((1979.0, 1000.0), set()),                             # ridge 1,979
+    ((0.0, 0.0), set()),                                   # "generic"
+])
+def test_wgmma_route_follows_the_cards_ridge(peaks, want):
+    """The ridge is tune_params' int8 peak over its memory rate; the same
+    BERT b128 launches route by it, and a card with no peaks routes none."""
+    tops, gbps = peaks
+    ridge = tq8gemm.ridge_of(tconfig.TuneParams("card", int8_peak_tops=tops,
+                                                hbm_gbps=gbps))
+    assert ridge == (tops / gbps * 1e3 if gbps else 0.0)
+    shapes = {"qkv": (16384, 2304, 768), "out": (16384, 768, 768),
+              "ffn1": (16384, 3072, 768), "ffn2": (16384, 768, 3072)}
+    got = {name for name, (m, n, k) in shapes.items()
+           if tq8gemm.wgmma_route(m, n, k, -(-k // 64), ridge)}
+    assert got == want
+
+
+def test_generic_card_routes_nothing():
+    assert tq8gemm.ridge_of(tconfig.TuneParams("generic")) == 0.0
+    assert tq8gemm.ridge_of(tconfig._TUNE_TABLE["cpu"]) == 0.0
+    assert H100_RIDGE == pytest.approx(1979.0 / 3.35)
 
 
 @pytest.mark.parametrize("blocks", [1, 4096, 5000])

@@ -257,11 +257,13 @@ def test_four_kernels_with_no_library_calls():
     """The thirteen kernel sources (four of the first slice, three of the
     second, q8avgpool of the third, q8bmm, u8rmax, u8lut32norm and u8clamp
     of the fourth, q8requant of the parallel layer) and their shared
-    headers (the tensor-core tile of q8gemm, q8conv and q8stem, the
-    requantization, the row mapping of u8rmax and u8lut32norm, the window
-    mapping of u8maxpool and q8avgpool) call no library.  The kernels'
-    registry also names the partial instances of q8gemm.cu and q8conv.cu,
-    whose wrappers count their own launches."""
+    headers (the tensor-core tile of q8gemm, q8conv and q8stem, q8gemm's
+    wgmma tile, the requantization, the row mapping of u8rmax and
+    u8lut32norm, the window mapping of u8maxpool and q8avgpool) call no
+    library; the wgmma tile includes the driver's header cuda.h for its
+    TMA descriptors only.  The kernels' registry also names the partial
+    instances of q8gemm.cu and q8conv.cu, whose wrappers count their own
+    launches."""
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert names == ["q8avgpool.cu", "q8bmm.cu", "q8conv.cu", "q8dwconv.cu",
                      "q8gavgpool.cu", "q8gemm.cu", "q8requant.cu",
@@ -269,7 +271,7 @@ def test_four_kernels_with_no_library_calls():
                      "u8lut32norm.cu", "u8maxpool.cu", "u8rmax.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == \
         ["device_guard.cuh", "imma_tile.cuh", "pool_tile.cuh",
-         "requant.cuh", "u8rows.cuh"]
+         "requant.cuh", "u8rows.cuh", "wgmma_tile.cuh"]
     for p in _build.CSRC.iterdir():
         text = p.read_text()
         for lib in ("cublas", "cudnn", "cutlass", "_int_mm"):
@@ -277,7 +279,8 @@ def test_four_kernels_with_no_library_calls():
         includes = set(re.findall(r"#include [<\"]([^>\"]+)", text))
         assert includes <= {"cuda_runtime.h", "cstdint", "requant.cuh",
                             "imma_tile.cuh", "u8rows.cuh",
-                            "pool_tile.cuh", "device_guard.cuh"}, \
+                            "pool_tile.cuh", "device_guard.cuh",
+                            "wgmma_tile.cuh", "cuda.h"}, \
             f"{p.name} includes {includes}"
     assert set(tkernels.KERNELS) == {n[:-3] for n in names} | {
         "q8gemm_partial", "q8conv_partial"}
