@@ -15,7 +15,7 @@ squeezenet_v11_int8.tflite) through qnnpack_tpu_torch.io.import_tflite
 and the graph runtime.  Phases, each of which raises on any failure:
 
   1. print the card (nvidia-smi name and power limit) and versions, build
-     the thirteen CUDA kernel sources from qnnpack_tpu_torch/kernels/csrc/;
+     the seventeen CUDA kernel sources from qnnpack_tpu_torch/kernels/csrc/;
   2. hold every kernel against its plain PyTorch version, run on CPU copies
      of the same inputs, at the main paths' shapes plus kzp != 128, q31,
      precise, gemmlowp, per-channel, ragged-channel, odd-size, grouped
@@ -167,6 +167,9 @@ and the graph runtime.  Phases, each of which raises on any failure:
      classifier q8gemm beside its phase-8 time; InferenceServer.warmup()
      captures every bucket, and phase 5's requests must then get the same
      answers with no launch; HealthMonitor.probe_once() on the card;
+     MiMo-V2-Flash's block (check_mimo) at its published widths, one b1
+     forward eager and captured on two inputs, byte for byte, its capture
+     launching MIMO_LAUNCHES and routing the same rows;
   10. the parallel layer (qnnpack_tpu_torch.parallel, check_parallel):
      the partial instances of q8gemm.cu and q8conv.cu (int32 sum_k A W' -
      kzp' sum_k A, no bias, no requantization) against their plain
@@ -207,6 +210,7 @@ bounds divide by the card's data-sheet peaks from config.tune_params().
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -222,7 +226,9 @@ INT8_OPS_PER_S = None
 KERNEL_NAMES = ("q8gemm", "q8dwconv", "q8vadd", "q8gavgpool", "q8conv",
                 "q8stem", "u8maxpool", "q8avgpool", "q8bmm", "u8rmax",
                 "u8lut32norm", "u8clamp", "q8gemm_partial", "q8conv_partial",
-                "q8requant")
+                "q8requant", "q8gemm_grouped", "q8bmm_masked",
+                "u8softmax_masked", "q8rope", "q8swiglu", "moe_route",
+                "moe_combine")
 
 
 def _counts(**nonzero):
@@ -260,6 +266,16 @@ IMPORTED_LAUNCHES = {
                                      u8maxpool=3, q8gavgpool=1),
 }
 IMPORTED_SERVED = {"mobilenet_v2_tflite": 8}
+# One b1 forward of MiMo-V2-Flash's block (models/mimo_v2_flash.py, seven
+# layers, six of them expert layers): per layer qkv and o on q8gemm, q8rope,
+# the masked scores and context, u8softmax_masked and two adds; layer 0's
+# gate|up and down on q8gemm and q8swiglu; each expert layer's router on
+# q8gemm_partial, moe_route (its two kernels), two grouped launches,
+# q8swiglu and moe_combine.
+MIMO_LAUNCHES = _counts(q8gemm=16, q8gemm_partial=6, q8gemm_grouped=12,
+                        q8bmm_masked=14, u8softmax_masked=7, q8rope=7,
+                        q8swiglu=7, moe_route=12, moe_combine=6, q8vadd=14)
+MIMO_KERNELS = tuple(name for name in KERNEL_NAMES if MIMO_LAUNCHES[name])
 # One run of phase 6's lifecycle operators (ops_cases).
 OPS_LAUNCHES = _counts(q8gemm=11, q8dwconv=5, q8vadd=1, q8gavgpool=3,
                        q8conv=32, q8stem=2, u8maxpool=2, q8avgpool=2,
@@ -303,6 +319,16 @@ SOURCES = {
                        "qnnpack_tpu/parallel/mesh.py:200"),
     "q8requant": ("qnnpack_tpu_torch/kernels/csrc/q8requant.cu",
                   "qnnpack_tpu/parallel/mesh.py:160"),
+    # MiMo-V2-Flash's block has no counterpart in the JAX package.
+    "q8gemm_grouped": ("qnnpack_tpu_torch/kernels/csrc/q8gemm.cu", "none"),
+    "q8bmm_masked": ("qnnpack_tpu_torch/kernels/csrc/q8bmm.cu", "none"),
+    "u8softmax_masked": ("qnnpack_tpu_torch/kernels/csrc/u8lut32norm.cu",
+                         "none"),
+    "q8rope": ("qnnpack_tpu_torch/kernels/csrc/q8rope.cu", "none"),
+    "q8swiglu": ("qnnpack_tpu_torch/kernels/csrc/q8swiglu.cu", "none"),
+    "moe_route": ("qnnpack_tpu_torch/kernels/csrc/moe_route.cu", "none"),
+    "moe_combine": ("qnnpack_tpu_torch/kernels/csrc/moe_combine.cu",
+                    "none"),
 }
 
 
@@ -404,11 +430,13 @@ def compare(torch, err, name, label, got, want, quiet=False):
         raise AssertionError(f"{name} {label}: {tuple(got.shape)} "
                              f"{got.dtype} vs {tuple(want.shape)} "
                              f"{want.dtype}")
-    diff = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-    err[name] = max(err[name], diff)
-    if not torch.equal(got, want):
+    if torch.equal(got, want):
+        diff = 0
+    else:
+        diff = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
         raise AssertionError(f"{name} {label}: kernel != plain, "
                              f"max |err| {diff}")
+    err[name] = max(err[name], diff)
     if not quiet:
         log(f"  {name:10s} {label:44s} equal")
 
@@ -419,6 +447,7 @@ def check_kernels(torch, err):
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.kernels._build import out_dims
     from qnnpack_tpu_torch.kernels.vpu_ops import ROW_VECS
+    from qnnpack_tpu_torch.models.mimo_v2_flash import MimoConfig
     from qnnpack_tpu_torch.nn.conv import pack_conv_weights
     from qnnpack_tpu_torch.nn.elementwise import (build_softargmax_lut,
                                                   lut32_tensor)
@@ -964,8 +993,168 @@ def check_kernels(torch, err):
         params = compute_u8_clamping_params(lo, hi)
         check("u8clamp", label, K.u8clamp_cuda(placed(x, offset), params),
               K.u8clamp_plain(x, params))
+    check_mimo_kernels(torch, err, MimoConfig(), cuda)
     torch.cuda.synchronize()
 
+
+def check_mimo_kernels(torch, err, cfg, dev):
+    """MiMo-V2-Flash's kernels against their plain versions on random
+    inputs at the shapes of a b1 forward of the block `cfg`
+    (models/mimo_v2_flash.py MimoConfig), on device `dev`, the plain
+    versions there too (their int64 products over 8,192 keys would take
+    the CPU minutes): q8rope on a full and a window layer's qkv rows; the
+    masked scores, u8softmax_masked and the context of two key/value
+    heads' query heads, causal, and banded with sinks; moe_route of every
+    token over the router's experts with tied scores; q8gemm's grouped
+    instance for the experts' gate|up and down with segments of 0, 1,
+    127, 129 and every row live; q8swiglu on them; and moe_combine."""
+    from qnnpack_tpu_torch.kernels import moe
+    from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES,
+                                                 q8bmm_masked_cuda,
+                                                 q8bmm_masked_plain,
+                                                 valid_keys)
+    from qnnpack_tpu_torch.kernels.q8gemm import (q8gemm_grouped_cuda,
+                                                  q8gemm_grouped_plain)
+    from qnnpack_tpu_torch.kernels.vpu_ops import (q8rope_cuda, q8rope_plain,
+                                                   q8swiglu_cuda,
+                                                   q8swiglu_plain,
+                                                   u8softmax_masked_cuda,
+                                                   u8softmax_masked_plain)
+    from qnnpack_tpu_torch.models.mimo_v2_flash import (quantization_scales,
+                                                        rope_tables,
+                                                        sigmoid_lut, silu_lut)
+    from qnnpack_tpu_torch.nn.elementwise import (build_softargmax_lut,
+                                                  lut32_tensor)
+    from qnnpack_tpu_torch.nn.packing import pack_grouped_weights
+    from qnnpack_tpu_torch.nn.requant_dispatch import make_requant_params
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    s, dq, dv, h = cfg.seq_len, cfg.qk_dim, cfg.v_dim, cfg.hidden
+    scales = quantization_scales(cfg)
+    zp = 128
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
+                             device=dev)
+
+    def rq(scale):
+        return make_requant_params("fp32", scale, zp)
+
+    # (label, key/value heads of the layer kind, window, RoPE theta,
+    # context scale): two key/value heads and their query heads.
+    for label, kv, window, theta, ctx_scale in (
+            ("full", cfg.kv_full, 0, cfg.theta_full,
+             scales["context_full_scale"]),
+            ("window", cfg.kv_window, cfg.window, cfg.theta_window,
+             scales["context_window_scale"])):
+        nkv = 2
+        nh = nkv * cfg.heads // kv
+        group = nh // nkv
+        chunk = math.gcd(group, 4)
+        tag = f"{label} {nh}/{nkv} heads S={s}"
+        cols = (nh + nkv) * dq
+        qkv = u8(s, cols + nkv * dv)
+        c, sn = (torch.from_numpy(t).to(dev)
+                 for t in rope_tables(theta, s, cfg.rot_dim))
+        rope = (c, sn, nh + nkv, dq, s, rq(2.0 ** -14))
+        want = q8rope_plain(qkv, *rope)
+        compare(torch, err, "q8rope", f"{tag} qkv {tuple(qkv.shape)}",
+                q8rope_cuda(qkv, *rope)[:, :cols], want)
+        rows = qkv.view(1, s, -1)
+        q = rows[..., :nh * dq].view(1, s, nh, dq).permute(0, 2, 1, 3)
+        k = rows[..., nh * dq:cols].view(1, s, nkv, dq).permute(0, 2, 3, 1)
+        v = rows[..., cols:].view(1, s, nkv, dv).permute(0, 2, 1, 3)
+        keep = valid_keys(s, window, dev)
+        rps = rq(scales["scores_scale"])
+        scores = q8bmm_masked_cuda(q, k, zp, zp, rps, SCORES, window)
+        want = by_heads(torch, (1, nh, s, s), lambda h0, h1: (
+            q8bmm_masked_plain(q[:, h0:h1], k[:, h0 // group:h0 // group + 1],
+                               zp, zp, rps, SCORES, window)), chunk)
+        compare(torch, err, "q8bmm_masked", f"{tag} scores",
+                torch.where(keep, scores, 0), want)
+        del want
+        sinks = u8(nh) if window else None
+        # Rows of one value (head 1 from query 5 on) and of 255 (head 2).
+        scores[0, 1, 5:] = 200
+        scores[0, 2, :, :] = 255
+        lut = lut32_tensor(build_softargmax_lut(
+            scales["softmax_input_scale"], window + 1 if window else s), dev)
+        want = by_heads(torch, (1, nh, s, s), lambda h0, h1: (
+            u8softmax_masked_plain(scores[0, h0:h1], lut, window,
+                                   None if sinks is None else sinks[h0:h1])
+            [None]), chunk)
+        probs = u8softmax_masked_cuda(scores.view(nh, s, s), lut, window,
+                                      sinks).view(1, nh, s, s)
+        compare(torch, err, "u8softmax_masked",
+                f"{tag} {'with' if window else 'no'} sinks",
+                torch.where(keep, probs, 0), want)
+        del want
+        rpc = rq(ctx_scale)
+        ctx = torch.empty((1, s, nh * dv), dtype=torch.uint8, device=dev)
+        q8bmm_masked_cuda(probs, v, 0, zp, rpc, CONTEXT, window,
+                          out=ctx.view(1, s, nh, dv).permute(0, 2, 1, 3))
+        compare(torch, err, "q8bmm_masked", f"{tag} context",
+                ctx.view(1, s, nh, dv).permute(0, 2, 1, 3),
+                by_heads(torch, (1, nh, s, dv), lambda h0, h1: (
+                    q8bmm_masked_plain(probs[:, h0:h1],
+                                       v[:, h0 // group:h0 // group + 1], 0,
+                                       zp, rpc, CONTEXT, window)), chunk))
+        del qkv, rows, q, k, v, scores, probs, ctx
+        torch.cuda.empty_cache()
+
+    # The routing: a quarter of the experts tie on the logit of expert 0,
+    # and the first hundred tokens share one row of logits.
+    r_n, e, top = cfg.router_experts, cfg.experts_held, cfg.top_k
+    x = u8(s, h)
+    logits = torch.randint(-2**20, 2**20, (s, r_n), generator=gen,
+                           dtype=torch.int32, device=dev)
+    logits[:, r_n // 4:r_n // 2] = logits[:, :1]
+    logits[:100] = logits[:1]
+    bias_c = torch.randint(-2**20, 2**20, (r_n,), generator=gen,
+                           dtype=torch.int32, device=dev)
+    corr = torch.randint(-4, 5, (r_n,), generator=gen, dtype=torch.int32,
+                         device=dev)
+    args = (logits, bias_c, corr,
+            torch.from_numpy(sigmoid_lut(scales["sigmoid_input_scale"])).to(
+                dev), rq(scales["router_scale"]), x, top, 0, e)
+    got, want = moe.moe_route_cuda(*args), moe.moe_route_plain(*args)
+    live = moe.live_rows(want.counts, s)
+    for name in ("sel", "wts", "slot", "counts"):
+        compare(torch, err, "moe_route", f"{s} tokens top {top} of {r_n} "
+                f"with ties: {name}", getattr(got, name), getattr(want, name))
+    compare(torch, err, "moe_route", f"{s} tokens: the {int(live.sum())} "
+            f"live rows of {e} experts", got.rows[live], want.rows[live])
+
+    # The grouped GEMMs on segments of every live count that matters: none,
+    # one, either side of a 128-row tile, and every row.
+    counts = torch.tensor([s, 0, 1, 127, 129, s // 8, s - 1, s // 2],
+                          dtype=torch.int32, device=dev)[:e]
+    live = moe.live_rows(counts, s)
+    silu = torch.from_numpy(silu_lut(scales["silu_input_scale"])).to(dev)
+    w = cfg.expert_ffn
+    a = u8(e * s, h)
+    for label, n, kk, key in (("gate|up", 2 * w, h, "expert_gate_up_scale"),
+                              ("down", h, w, "expert_down_scale")):
+        packed = pack_grouped_weights(u8(e, n, kk), zp, zp, device=dev)
+        rp = rq(scales[key])
+        a = a[:, :kk].contiguous()
+        y = q8gemm_grouped_cuda(a, packed, counts, s, rp)
+        compare(torch, err, "q8gemm_grouped",
+                f"{label} {e}x[{s}]x{kk}->{n}, counts "
+                f"{counts.tolist()}", y[live],
+                q8gemm_grouped_plain(a, packed, counts, s, rp)[live])
+        if label == "gate|up":
+            sw = (silu, w, zp, zp, rq(scales["swiglu_scale"]), counts, s)
+            compare(torch, err, "q8swiglu", f"{e}x[{s}]x{n} live rows",
+                    q8swiglu_cuda(y, *sw)[live], q8swiglu_plain(y, *sw)[live])
+        del packed, y
+    dd = u8(e * s, h)
+    rpm = rq(1.0 / 256.0)
+    compare(torch, err, "moe_combine", f"{s}x{h} of the routing above",
+            moe.moe_combine_cuda(dd, got.slot, got.wts, rpm),
+            moe.moe_combine_plain(dd, got.slot, got.wts, rpm))
+    del a, dd, x, logits, got, want
+    torch.cuda.empty_cache()
 
 def pool_tag(fn):
     """The u8maxpool / q8avgpool instance of the last launch as [16 B,
@@ -1772,6 +1961,269 @@ def bert_calls(torch, params, spec, x):
         x = rec["run"]()
 
 
+def by_heads(torch, shape, part, chunk):
+    """A uint8 tensor of `shape` [B, H, ...] filled `chunk` heads at a
+    time by part(h0, h1) (heads h0 .. h1 - 1): a plain version of an
+    attention kernel in parts whose int64 temporaries fit the card."""
+    out = None
+    for h0 in range(0, shape[1], chunk):
+        y = part(h0, h0 + chunk)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.uint8, device=y.device)
+        out[:, h0:h0 + chunk] = y
+    return out
+
+
+def mimo_calls(torch, params, spec, x, y):
+    """kernel_calls' records for MiMo-V2-Flash's block, walking its forward
+    (models/mimo_v2_flash.py:mimo_forward) layer by layer, each kernel's
+    output the next one's input; the walk must end at the forward's output
+    `y`.  In-place kernels (q8rope, the masked softargmax) are timed on a
+    fresh copy of their input each call, less the copy's own time (`less`:
+    their time depends on the data, and a second pass over their own
+    output would be timed on other data), and `got` is their output on the
+    forward's input; `view` keeps what both outputs specify (the keys
+    inside the mask, the experts' live rows; the routing's four tensors
+    and live rows as bytes).  The plain masked products and softargmax run
+    four heads at a time.  Bytes and operations are counted as the
+    benchmark's reference counts them (each input read once, K and V once
+    a key/value head, only the mask's pairs), the expert kernels at the
+    rows routed here."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.kernels import moe
+    from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES,
+                                                 q8bmm_masked_plain,
+                                                 valid_keys)
+    from qnnpack_tpu_torch.kernels.q8gemm import q8gemm_grouped_plain
+    from qnnpack_tpu_torch.kernels.vpu_ops import (q8rope_plain,
+                                                   q8swiglu_plain,
+                                                   u8softmax_masked_plain)
+    from qnnpack_tpu_torch.models.mimo_v2_flash import (ACT_ZP, PROBS_ZP,
+                                                        WINDOW)
+    cfg = spec["cfg"]
+    b, s, h = x.shape
+    t = b * s
+    nh, dq, dv, rot = cfg.heads, cfg.qk_dim, cfg.v_dim, cfg.rot_dim
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rp = spec["rp"]
+
+    def gemm(name, a2, p, rparams):
+        m, k = a2.shape
+        return dict(kernel="q8gemm", label=f"{name} {m}x{k}->{p.n}",
+                    plan=plan_tag(q8gemm_plan(m, p.n, k, sms)),
+                    run=lambda: K.q8gemm_cuda(a2, p, rparams),
+                    plain=lambda: K.q8gemm_plain(a2, p, rparams),
+                    library=int_mm_yardstick(torch, a2, p.w),
+                    bytes=m * k + k * p.n + 4 * p.n + m * p.n,
+                    ops=2 * m * p.n * k)
+
+    def vadd(name, a, r):
+        n = a.numel()
+        return dict(kernel="q8vadd", label=f"{name} {tuple(a.shape)}",
+                    run=lambda: K.q8vadd_cuda(a, r, spec["add"]),
+                    plain=lambda: K.q8vadd_plain(a, r, spec["add"]),
+                    library=None, bytes=3 * n, ops=4 * n)
+
+    def grouped(name, a2, p, counts, rows, live, rparams):
+        return dict(kernel="q8gemm_grouped",
+                    label=f"{name} {p.experts}x[{t}]x{p.k}->{p.n}, "
+                          f"{rows} rows live",
+                    run=lambda: K.q8gemm_grouped_cuda(a2, p, counts, t,
+                                                      rparams),
+                    plain=lambda: q8gemm_grouped_plain(a2, p, counts, t,
+                                                       rparams),
+                    view=lambda y: y[live], library=None,
+                    bytes=rows * p.k + p.experts * p.n * (p.k + 4)
+                    + rows * p.n, ops=2 * rows * p.n * p.k)
+
+    x2 = x.reshape(t, h)
+    for i, p in enumerate(params):
+        kind = cfg.pattern[i]
+        window = cfg.window if kind == WINDOW else 0
+        nkv = cfg.kv_heads(i)
+        group = nh // nkv
+        chunk = math.gcd(group, 4)
+        cols = (nh + nkv) * dq
+        rec = gemm(f"l{i}.qkv", x2, p["qkv"], rp["qkv"])
+        yield rec
+        qkv = rec["run"]()
+        width = qkv.shape[1]
+        cos, sin = spec["rope"][kind]
+        rope_args = (cos, sin, nh + nkv, dq, s, spec["rp_rope"])
+        rotated = K.q8rope_cuda(qkv.clone(), *rope_args)
+        scratch = qkv.clone()
+        yield dict(kernel="q8rope",
+                   label=f"l{i}.rope {t}x{nh + nkv}x{dq}, {rot} rotated",
+                   run=lambda: K.q8rope_cuda(scratch.copy_(qkv), *rope_args),
+                   less=lambda: scratch.copy_(qkv),
+                   got=lambda: rotated[:, :cols],
+                   plain=lambda: q8rope_plain(qkv, *rope_args), library=None,
+                   bytes=2 * t * (nh + nkv) * rot + 8 * s * (rot // 2),
+                   ops=0)
+        del qkv, scratch
+        rows = rotated.view(b, s, width)
+        q = rows[..., :nh * dq].view(b, s, nh, dq).permute(0, 2, 1, 3)
+        k = rows[..., nh * dq:cols].view(b, s, nkv, dq).permute(0, 2, 3, 1)
+        v = rows[..., cols:].view(b, s, nkv, dv).permute(0, 2, 1, 3)
+        keep = valid_keys(s, window, x.device)
+        pr = b * nh * (s * (s + 1) // 2 if not window else
+                       window * (window + 1) // 2 + (s - window) * window)
+        mask = f"{nh}/{nkv} heads, " + (f"band {window}" if window
+                                        else "causal")
+
+        def masked(y):
+            return torch.where(keep, y, 0)
+
+        def scores_part(h0, h1):
+            return q8bmm_masked_plain(q[:, h0:h1], k[:, h0 // group:
+                                                     h0 // group + 1],
+                                      ACT_ZP, ACT_ZP, rp["scores"], SCORES,
+                                      window)
+        yield dict(kernel="q8bmm_masked",
+                   label=f"l{i}.scores [{s}x{dq}]x[{dq}x{s}] {mask}",
+                   run=lambda: K.q8bmm_masked_cuda(
+                       q, k, ACT_ZP, ACT_ZP, rp["scores"], SCORES, window),
+                   plain=lambda: by_heads(torch, (b, nh, s, s), scores_part,
+                                          chunk),
+                   view=masked, library=None,
+                   bytes=t * (nh + nkv) * dq + pr, ops=2 * pr * dq)
+        scores = K.q8bmm_masked_cuda(q, k, ACT_ZP, ACT_ZP, rp["scores"],
+                                     SCORES, window)
+        lut, sink = spec["softmax_lut"][kind], p.get("sink")
+        probs = scores.clone()
+        K.u8softmax_masked_cuda(probs.view(b * nh, s, s), lut, window, sink)
+        scratch = scores.clone()
+
+        def softmax_part(h0, h1):
+            return u8softmax_masked_plain(
+                scores[:, h0:h1].reshape(-1, s, s), lut, window,
+                None if sink is None else sink[h0:h1]).view(b, h1 - h0, s,
+                                                            s)
+        yield dict(kernel="u8softmax_masked",
+                   label=f"l{i}.softmax {b * nh}x[{s}x{s}] {mask}"
+                         + (", sinks" if sink is not None else ""),
+                   run=lambda: K.u8softmax_masked_cuda(
+                       scratch.copy_(scores).view(b * nh, s, s), lut, window,
+                       sink),
+                   less=lambda: scratch.copy_(scores),
+                   got=lambda: probs,
+                   plain=lambda: by_heads(torch, (b, nh, s, s),
+                                          softmax_part, chunk),
+                   view=masked, library=None, bytes=2 * pr, ops=0)
+        del scores, scratch
+        torch.cuda.empty_cache()
+        ctx = torch.empty((b, s, nh * dv), dtype=torch.uint8,
+                          device=x.device)
+        cview = ctx.view(b, s, nh, dv).permute(0, 2, 1, 3)
+        rp_ctx = rp["context_window" if window else "context_full"]
+
+        def context_part(h0, h1):
+            return q8bmm_masked_plain(probs[:, h0:h1], v[:, h0 // group:
+                                                         h0 // group + 1],
+                                      PROBS_ZP, ACT_ZP, rp_ctx, CONTEXT,
+                                      window)
+        yield dict(kernel="q8bmm_masked",
+                   label=f"l{i}.context [{s}x{s}]x[{s}x{dv}] {mask}",
+                   run=lambda: K.q8bmm_masked_cuda(
+                       probs, v, PROBS_ZP, ACT_ZP, rp_ctx, CONTEXT, window,
+                       out=cview),
+                   plain=lambda: by_heads(torch, (b, nh, s, dv),
+                                          context_part, chunk),
+                   library=None, bytes=pr + t * nkv * dv + t * nh * dv,
+                   ops=2 * pr * dv)
+        K.q8bmm_masked_cuda(probs, v, PROBS_ZP, ACT_ZP, rp_ctx, CONTEXT,
+                            window, out=cview)
+        del probs, rotated, rows, q, k, v
+        torch.cuda.empty_cache()
+        rec = gemm(f"l{i}.o", ctx.view(t, nh * dv), p["o"], rp["o"])
+        yield rec
+        rec = vadd(f"l{i}.attn_add", rec["run"](), x2)
+        yield rec
+        x2 = rec["run"]()
+        if not cfg.moe[i]:
+            f = cfg.ffn
+            rec = gemm(f"l{i}.gate_up", x2, p["gate_up"], rp["gate_up"])
+            yield rec
+            gu = rec["run"]()
+            swiglu = (spec["silu_lut"], f, ACT_ZP, ACT_ZP, rp["swiglu"])
+            yield dict(kernel="q8swiglu", label=f"l{i}.swiglu {t}x{2 * f}",
+                       run=lambda: K.q8swiglu_cuda(gu, *swiglu),
+                       plain=lambda: q8swiglu_plain(gu, *swiglu),
+                       library=None, bytes=3 * t * f, ops=0)
+            rec = gemm(f"l{i}.down", K.q8swiglu_cuda(gu, *swiglu),
+                       p["down"], rp["down"])
+            yield rec
+            ffn = rec["run"]()
+        else:
+            r_n, e, w = cfg.router_experts, cfg.experts_held, cfg.expert_ffn
+            router = p["router"]
+            yield dict(kernel="q8gemm_partial",
+                       label=f"l{i}.router {t}x{h}->{r_n} int32",
+                       run=lambda: K.q8gemm_partial_cuda(x2, router),
+                       plain=lambda: K.partial_acc_plain(
+                           x2, router.w, router.kzp_biased).to(torch.int32),
+                       library=None, bytes=t * h + r_n * h + 4 * t * r_n,
+                       ops=2 * t * r_n * h)
+            route_args = (K.q8gemm_partial_cuda(x2, router), router.bias_c,
+                          p["corr"], spec["sigmoid_lut"], rp["router"], x2,
+                          cfg.top_k, cfg.first_expert, e)
+            route = moe.moe_route_cuda(*route_args)
+            counts = route.counts
+            routed = int(counts.sum())
+            live = moe.live_rows(counts, t)
+
+            def routing(r):
+                return torch.cat(
+                    [u.contiguous().view(torch.uint8).flatten()
+                     for u in (r.sel, r.wts, r.slot, r.counts)]
+                    + [r.rows[live].flatten()])
+            yield dict(kernel="moe_route",
+                       label=f"l{i}.route {t} tokens, top {cfg.top_k} of "
+                             f"{r_n}, {routed} rows to experts "
+                             f"{cfg.first_expert}-{cfg.first_expert + e - 1}",
+                       run=lambda: moe.moe_route_cuda(*route_args),
+                       got=lambda: route,
+                       plain=lambda: moe.moe_route_plain(*route_args),
+                       view=routing, library=None,
+                       bytes=4 * t * r_n + 4 * r_n + 12 * t * cfg.top_k
+                       + 2 * routed * h, ops=0)
+            rec = grouped(f"l{i}.expert_gate_up", route.rows, p["gate_up"],
+                          counts, routed, live, rp["expert_gate_up"])
+            yield rec
+            gu = rec["run"]()
+            swiglu = (spec["silu_lut"], w, ACT_ZP, ACT_ZP, rp["swiglu"],
+                      counts, t)
+            yield dict(kernel="q8swiglu",
+                       label=f"l{i}.expert_swiglu {e}x[{t}]x{2 * w}, "
+                             f"{routed} rows live",
+                       run=lambda: K.q8swiglu_cuda(gu, *swiglu),
+                       plain=lambda: q8swiglu_plain(gu, *swiglu),
+                       view=lambda y: y[live], library=None,
+                       bytes=routed * 3 * w, ops=0)
+            rec = grouped(f"l{i}.expert_down", K.q8swiglu_cuda(gu, *swiglu),
+                          p["down"], counts, routed, live,
+                          rp["expert_down"])
+            yield rec
+            d = rec["run"]()
+            combine = (d, route.slot, route.wts, spec["rp_combine"])
+            yield dict(kernel="moe_combine",
+                       label=f"l{i}.combine {t}x{h}, {routed} rows",
+                       run=lambda: K.moe_combine_cuda(*combine),
+                       plain=lambda: moe.moe_combine_plain(*combine),
+                       library=None,
+                       bytes=routed * h + t * h + 8 * t * cfg.top_k, ops=0)
+            ffn = K.moe_combine_cuda(*combine)
+            del gu, d, route, route_args, combine
+        rec = vadd(f"l{i}.ffn_add", ffn, x2)
+        yield rec
+        x2 = rec["run"]()
+        del ffn
+        torch.cuda.empty_cache()
+    if not torch.equal(x2.view(b, s, h), y):
+        raise AssertionError("mimo_calls: the walk ends off the forward's "
+                             "output")
+
+
 def kernel_calls(torch, model, params, spec, x):
     """One record per kernel launch of the forward on `x`: its kernel, a
     label, closures running the kernel, the plain version and the library
@@ -1947,18 +2399,32 @@ def time_main_path(torch, model, params, spec, x, err, plain_repeats):
     """Time every kernel launch of the forward on `x`, its plain version
     and yardstick; each kernel's output must equal its plain version's.
     Data movement (shuffles, concats) is timed alone."""
+    return time_calls(torch, kernel_calls(torch, model, params, spec, x),
+                      err, plain_repeats)
+
+
+def time_calls(torch, calls, err, plain_repeats):
+    """time_main_path's rows of the records `calls`: a record's output
+    (`got`, or else `run`'s) must equal its plain version's, both through
+    its `view` where it has one; its time is run's, less that of its
+    `less` where it has one."""
     rows = []
-    for call in kernel_calls(torch, model, params, spec, x):
+    for call in calls:
         if call["kernel"] in DATA_MOVEMENT:
             rows.append(dict(kernel=call["kernel"], label=call["label"],
                              bytes=call["bytes"],
                              ms=time_ms(call["run"], torch)))
             continue
-        compare(torch, err, call["kernel"], call["label"], call["run"](),
-                call["plain"](), quiet=True)
+        view = call.get("view") or (lambda y: y)
+        compare(torch, err, call["kernel"], call["label"],
+                view((call.get("got") or call["run"])()),
+                view(call["plain"]()), quiet=True)
+        torch.cuda.empty_cache()
         row = dict(kernel=call["kernel"], label=call["label"],
                    bytes=call["bytes"], ops=call["ops"],
-                   ms=time_ms(call["run"], torch),
+                   ms=time_ms(call["run"], torch) - (
+                       time_ms(call["less"], torch) if "less" in call
+                       else 0.0),
                    plain_ms=time_ms(call["plain"], torch,
                                     repeats=plain_repeats),
                    library_ms=(time_ms(call["library"], torch)
@@ -1967,7 +2433,8 @@ def time_main_path(torch, model, params, spec, x, err, plain_repeats):
             row["old_route_ms"] = time_ms(call["old_route"], torch)
         if call.get("plan") is not None:
             row["plan"] = call["plan"]
-        if call["kernel"] in ("q8gemm", "q8conv", "q8stem"):
+        if call["kernel"] in ("q8gemm", "q8conv", "q8stem", "q8gemm_grouped",
+                              "q8bmm_masked"):
             bound_ms = max(row["bytes"] / HBM_BYTES_PER_S,
                            row["ops"] / INT8_OPS_PER_S) * 1e3
             row.update(tops=row["ops"] / (row["ms"] * 1e-3) / 1e12,
@@ -2586,6 +3053,87 @@ def check_captured(torch, models, per_shape, forward, rng):
             del runner, got, want, xs
             jf.clear()
             torch.cuda.empty_cache()
+
+
+def check_mimo(torch, rng, err):
+    """MiMo-V2-Flash's block at its published widths (entry(model=
+    "mimo_v2_flash"): seven layers, 8 of 256 experts, sequence 8,192), one
+    b1 forward eager and captured (ops.base.jit_forward) on two inputs:
+    the captured outputs must equal the eager ones byte for byte, the
+    capture must launch MIMO_LAUNCHES, and the held experts' routed rows
+    (the device counter moe.routed_rows) must be those of the eager run.
+    Both forwards are timed in turns, eager, graph, graph, eager.  Then
+    every launch of the b1 forward is checked against its plain version
+    and timed (mimo_calls, time_calls).  Returns (forward row, the
+    capture's launches, per-launch rows)."""
+    from qnnpack_tpu_torch import kernels as K
+    from qnnpack_tpu_torch.entry import entry, input_shape
+    from qnnpack_tpu_torch.ops.base import jit_forward
+    from qnnpack_tpu_torch.utils import profiling
+
+    fn, (params, x) = entry(model="mimo_v2_flash")
+    xs = [x, torch.from_numpy(rng.integers(
+        0, 256, (1,) + input_shape("mimo_v2_flash"),
+        dtype=np.int64).astype(np.uint8)).cuda()]
+    jf = jit_forward(fn)
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        want = []
+        routed = []
+        for xi in xs:
+            want.append(fn(params, xi))
+            routed.append(profiling.counters()["moe.routed_rows"])
+        if K.launch_counts() != {k: 2 * v for k, v in
+                                 MIMO_LAUNCHES.items()}:
+            raise AssertionError(f"mimo eager launches {K.launch_counts()}")
+        runner = jf.lower(params, xs[0])
+        got = []
+        for xi, r in zip(xs, routed):
+            got.append(jf(params, xi))
+            torch.cuda.synchronize()
+            if profiling.counters()["moe.routed_rows"] != r:
+                raise AssertionError("mimo: captured routing differs")
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"mimo b1 input {i}: captured forward differs in "
+                    f"{int((g != w).sum())} bytes")
+        if torch.equal(want[0], want[1]):
+            raise AssertionError("mimo b1: two inputs, one output")
+        if runner.launches != MIMO_LAUNCHES:
+            raise AssertionError(f"mimo capture launched {runner.launches}, "
+                                 f"not {MIMO_LAUNCHES}")
+        e1 = forward_ips(torch, fn, params, xs[0], 3)
+        g1 = forward_ips(torch, jf, params, xs[0], 3)
+        g2 = forward_ips(torch, jf, params, xs[0], 3)
+        e2 = forward_ips(torch, fn, params, xs[0], 3)
+    launches = dict(runner.launches)
+    y = want[0]
+    del runner, got, want
+    jf.clear()
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        rows = time_calls(torch, mimo_calls(torch, params, fn.spec, xs[0],
+                                            y), err, 1)
+    kernels_ms = sum(r["ms"] for r in rows)
+    row = dict(b1_eager_ms=(e1[1] + e2[1]) / 2,
+               b1_graph_ms=(g1[1] + g2[1]) / 2, routed_rows=routed,
+               b1_kernels_ms=kernels_ms)
+    row["b1_graph_busy"] = kernels_ms / row["b1_graph_ms"]
+    log(f"    mimo_v2_flash b1: captured == eager on two inputs, capture "
+        f"launches MIMO_LAUNCHES, routed rows {routed} (8,192 tokens x 8 "
+        f"x 8 / 256 = 2,048 expected a layer); eager "
+        f"{row['b1_eager_ms']:.3f} ms, graph {row['b1_graph_ms']:.3f} ms; "
+        f"each of its {len(rows)} kernel calls equals its plain version, "
+        f"kernels {kernels_ms:.3f} ms (busy {row['b1_graph_busy']:.2f})")
+    for name in MIMO_KERNELS:
+        sm = summarize(rows, name)
+        log(f"    mimo_v2_flash b1 {name:16s} {sm['shapes']:3d} calls: "
+            f"{sm['ms']:.4f} ms, bound {sm['bound_ms']:.4f} ms "
+            f"({sm['bound_by']}), plain {sm['plain_ms']:.4f} ms")
+    del xs, params, y
+    torch.cuda.empty_cache()
+    return row, launches, rows
 
 
 def check_runtime_spans(torch, models, rng, steps=20) -> dict:
@@ -3336,6 +3884,8 @@ def main() -> int:
     log("[9] captured forwards (CUDA graphs, ops.base.jit_forward)")
     log(f"    initialize(): {initialize()}")
     check_captured(torch, models, per_shape, forward, rng)
+    (forward["mimo_v2_flash"], launches["mimo_v2_flash"],
+     per_shape["mimo_v2_flash b1"]) = check_mimo(torch, rng, max_err)
     runtime_spans = check_runtime_spans(torch, models, rng)
     call = runtime_spans["runtime.call"]
     log("[9] mobilenet_v2 b128 jit_forward under profiling.trace(): each "
@@ -3372,7 +3922,11 @@ def main() -> int:
             and key.split()[0] not in IMPORTED for r in rows]
     kernels_line = []
     for name in K.KERNELS:
-        s = parallel_rows.get(name) or summarize(b128, name)
+        s = parallel_rows.get(name)
+        if s is None:
+            s = summarize(b128, name)
+            if not s["shapes"]:
+                s = summarize(per_shape["mimo_v2_flash b1"], name)
         source, replaces = SOURCES[name]
         kernels_line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -3396,7 +3950,8 @@ def main() -> int:
         kernels=kernels_line, per_shape=per_shape), indent=1))
     log("    per-shape times: chiprun_out/chip_smoke.json "
         "(kernel ms in the line below are summed over one batch-128 "
-        "forward of each path; u8clamp's are the lifecycle phase's)")
+        "forward of each path; u8clamp's are the lifecycle phase's, and "
+        "those of the kernels only MiMo-V2-Flash runs its b1 forward's)")
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

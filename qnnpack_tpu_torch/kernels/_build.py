@@ -58,6 +58,16 @@ SIGNATURES = {
     "qnn_q8conv_partial": [_I, _P, _P, _P] + [_I] * 19
                           + [_I, _I, _I, _P, _P, _P],
     "qnn_q8requant": [_I, _P, _P, _P, _P, _I64, _I] + [_I] * 6 + [_F, _P],
+    "qnn_q8bmm_masked": [_I, _P, _P, _P, _I64, _I64, _I, _I, _I, _I]
+                        + [_I64] * 6 + [_I] + [_I64] * 3 + [_I] * 4
+                        + [_I] * 6 + [_F, _P],
+    "qnn_u8softmax_masked": [_I, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
+    "qnn_q8gemm_grouped": [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_I] * 6
+                          + [_F, _P],
+    "qnn_q8rope": [_I, _P, _P, _P, _I64, _I64] + [_I] * 5 + [_F, _P],
+    "qnn_q8swiglu": [_I, _P, _P, _P, _I64, _I, _P] + [_I] * 5 + [_F, _P],
+    "qnn_moe_route": [_I] + [_P] * 10 + [_I64] + [_I] * 8 + [_F, _P],
+    "qnn_moe_combine": [_I, _P, _P, _P, _P, _I64] + [_I] * 5 + [_F, _P],
 }
 
 _lock = threading.Lock()

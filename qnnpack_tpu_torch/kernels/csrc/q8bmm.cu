@@ -51,6 +51,16 @@
 //   - The epilogue stages acc - zb * rowsum - za * colsum + K za zb in
 //     shared memory; each thread then requantizes 16 columns of a row and
 //     stores them with one 16-byte store where the address allows.
+//
+// The masked instances (q8bmm_masked_kernel, kernels/q8bmm.py
+// q8bmm_masked_cuda) are attention's products under a causal or banded
+// mask with grouped-query attention (B's head z1 / grp): the scores leave
+// out every tile with no pair of the mask (the causal triangle is walked
+// tile by tile; a 128-key band takes 4 or 5 of a row tile's N tiles), the
+// context skips the K steps outside its rows' keys and sets the
+// probabilities outside each row's mask to za in shared memory.  They
+// share bmm_tiles with q8bmm_kernel, whose instances compile with the mask
+// and the head group folded away.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -95,6 +105,8 @@ struct BmmArgs {
   int m, n, k, za, zb;
   int wa, wb;  // copy widths of A and B
   qnn::Requant rp;
+  int grp;     // the masked instances: query heads a key/value head
+  int window;  // the masked instances: 0 causal, else the band's keys
 };
 
 // c += a (16 x 32 uint8, row) * b (32 x 8 uint8, col), int32.
@@ -329,32 +341,77 @@ __device__ __forceinline__ void store_rows(const uint32_t* stage, int m0,
   }
 }
 
-// kKMajor: B has K at stride 1 (else N).  kFast: 16-byte copies of A and B
-// (word loads of an N-major B) and K <= 32,768, so one int32 chain holds the
-// whole product; otherwise the copy widths are read from the arguments and
-// the chains are added in uint32 every 32,768 of K.
-template <bool kKMajor, bool kFast>
-__global__ void __launch_bounds__(kThreads, kFast ? 3 : 1)
-    q8bmm_kernel(const BmmArgs p) {
-  __shared__ __align__(16) uint8_t smem[kSmemBytes];
+// The masks of q8bmm_masked_kernel (kernels/q8bmm.py SCORES, CONTEXT): the
+// pairs (query i, key j) with j <= i, and with window W > 0 j > i - W.
+// kNoMask is q8bmm_kernel's plain product.
+enum Mask { kNoMask = 0, kScores = 1, kContext = 2 };
+
+// The A tile of a context stage (the probabilities, K = the keys) with each
+// byte outside its row's mask set to za, so that it adds nothing (and each
+// past K, where B is zero-filled, to 0): rows m0 .., keys k0 .. k0 + kStep
+// - 1.  32 bytes a thread.
+__device__ __forceinline__ void mask_stage(uint8_t* sa, int m0, int k0,
+                                           int k, int window, uint8_t za) {
+  constexpr int kPerRow = kStep / 16;
+  for (int idx = threadIdx.x; idx < kBM * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow;
+    const int c = (idx % kPerRow) * 16;
+    const int i = m0 + r;
+    uint4* at = reinterpret_cast<uint4*>(sa + r * kPitch + c);
+    uint4 v = *at;
+    uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      const int j = k0 + c + b;
+      if (j > i || (window > 0 && j <= i - window)) {
+        const uint32_t fill = j < k ? za : 0u;
+        w[b / 4] = (w[b / 4] & ~(0xFFu << (8 * (b % 4)))) |
+                   (fill << (8 * (b % 4)));
+      }
+    }
+    *at = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// One block's tiles: the output tile (m0, n0) of every batch entry the
+// block takes.  kKMajor: B has K at stride 1 (else N).  kFast: 16-byte
+// copies of A and B (word loads of an N-major B) and K <= 32,768, so one
+// int32 chain holds the whole product; otherwise the copy widths are read
+// from the arguments and the chains are added in uint32 every 32,768 of K.
+// kMask: kScores leaves out the tiles with no pair of the mask (the caller
+// maps the grid), kContext sums each row over its keys only (the K steps
+// outside the block's rows' keys are skipped, the rest masked to za); both
+// read B's head z1 / grp (grouped-query attention).
+template <bool kKMajor, bool kFast, int kMask>
+__device__ __forceinline__ void bmm_tiles(const BmmArgs& p, uint8_t* smem,
+                                          int m0, int n0) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warp_m = warp / kWN;
   const int warp_n = warp % kWN;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int nsteps = (p.k + kStep - 1) / kStep;
+  int step0 = 0;
+  int nsteps = (p.k + kStep - 1) / kStep;
+  uint32_t kzz = static_cast<uint32_t>(p.k) * static_cast<uint32_t>(p.za) *
+                 static_cast<uint32_t>(p.zb);
+  if constexpr (kMask == kContext) {
+    // Rows m0 .. m0 + kBM - 1 read keys from m0 - W + 1 (or 0) to
+    // m0 + kBM - 1; the steps wholly outside are skipped.
+    const int lo = p.window > 0 ? max(0, m0 - p.window + 1) : 0;
+    const int hi = min(p.k, m0 + kBM);
+    step0 = lo / kStep;
+    nsteps = (hi + kStep - 1) / kStep - step0;
+    kzz = static_cast<uint32_t>(hi - step0 * kStep) *
+          static_cast<uint32_t>(p.za) * static_cast<uint32_t>(p.zb);
+  }
   const bool row_sums = p.zb != 0;
   const bool col_sums = p.za != 0;
-  const uint32_t kzz = static_cast<uint32_t>(p.k) *
-                       static_cast<uint32_t>(p.za) *
-                       static_cast<uint32_t>(p.zb);
 
   for (int64_t z = blockIdx.z; z < p.g; z += gridDim.z) {
     const int64_t z0 = z / p.g1;
     const int64_t z1 = z % p.g1;
+    const int64_t zb1 = kMask == kNoMask ? z1 : z1 / p.grp;
     const uint8_t* a = p.a + z0 * p.sa0 + z1 * p.sa1 + m0 * p.lda;
-    const uint8_t* b = p.b + z0 * p.sb0 + z1 * p.sb1 +
+    const uint8_t* b = p.b + z0 * p.sb0 + zb1 * p.sb1 +
                        (kKMajor ? n0 * p.ldb : static_cast<int64_t>(n0));
     uint8_t* out = p.out + z0 * p.so0 + z1 * p.so1;
 
@@ -391,7 +448,7 @@ __global__ void __launch_bounds__(kThreads, kFast ? 3 : 1)
       }
     };
     if (nsteps > 0) {
-      load(0, 0);
+      load(0, step0);
       if constexpr (!kKMajor) store_bt(smem + kBM * kPitch, bt);
     }
     im::cp_async_commit();
@@ -401,9 +458,17 @@ __global__ void __launch_bounds__(kThreads, kFast ? 3 : 1)
       // with step t - 1, whose slot the next copies refill.
       __syncthreads();
       const bool more = t + 1 < nsteps;
-      if (more) load((t + 1) & 1, t + 1);
+      if (more) load((t + 1) & 1, step0 + t + 1);
       im::cp_async_commit();
-      const uint8_t* sa = smem + (t & 1) * kStageBytes;
+      uint8_t* sa = smem + (t & 1) * kStageBytes;
+      if constexpr (kMask == kContext) {
+        const int k0 = (step0 + t) * kStep;
+        if (k0 + kStep - 1 > m0 ||
+            (p.window > 0 && k0 <= m0 + kBM - 1 - p.window)) {
+          mask_stage(sa, m0, k0, p.k, p.window, static_cast<uint8_t>(p.za));
+          __syncthreads();
+        }
+      }
       compute_stage(sa, sa + kBM * kPitch, warp_m, warp_n, lane, row_sums,
                     col_sums, acc, rs, cs);
       if constexpr (!kKMajor) {
@@ -473,6 +538,57 @@ __global__ void __launch_bounds__(kThreads, kFast ? 3 : 1)
   }
 }
 
+template <bool kKMajor, bool kFast>
+__global__ void __launch_bounds__(kThreads, kFast ? 3 : 1)
+    q8bmm_kernel(const BmmArgs p) {
+  __shared__ __align__(16) uint8_t smem[kSmemBytes];
+  bmm_tiles<kKMajor, kFast, kNoMask>(p, smem, blockIdx.x * kBM,
+                                     blockIdx.y * kBN);
+}
+
+// The causal scores' tiles, row tile j holding kRatio (j + 1) N tiles
+// (those up to its last row): tile t of the triangle, row tile first, for
+// t < kRatio J (J + 1) / 2.
+constexpr int kRatio = kBM / kBN;
+static_assert(kRatio == 2, "causal_tile counts two N tiles a row tile");
+
+__device__ __forceinline__ void causal_tile(int64_t t, int& mt, int& nt) {
+  // j (j + 1) <= t < (j + 1) (j + 2): j = floor((sqrt(4 t + 1) - 1) / 2).
+  int64_t j = static_cast<int64_t>((sqrt(4.0 * t + 1.0) - 1.0) * 0.5);
+  while (j * (j + 1) > t) --j;
+  while ((j + 1) * (j + 2) <= t) ++j;
+  mt = static_cast<int>(j);
+  nt = static_cast<int>(t - j * (j + 1));
+}
+
+// The masked instances (16-byte copies, K <= 32,768).  kScores, causal:
+// blockIdx.x walks the triangle of tiles that hold a pair of the mask
+// (causal_tile), so no block is launched for a tile past the diagonal;
+// banded: blockIdx.y is the row tile and blockIdx.x counts its N tiles from
+// the first that holds a key of row m0's band, and a tile past the block's
+// last row is left out.  kContext: blockIdx.y the row tile, blockIdx.x the
+// N tile, so the blocks that share an A tile run together and it is read
+// from L2 once.
+template <bool kKMajor, int kMask>
+__global__ void __launch_bounds__(kThreads, 3)
+    q8bmm_masked_kernel(const BmmArgs p) {
+  __shared__ __align__(16) uint8_t smem[kSmemBytes];
+  int m0 = blockIdx.y * kBM;
+  int n0 = blockIdx.x * kBN;
+  if constexpr (kMask == kScores) {
+    if (p.window > 0) {
+      n0 += max(0, m0 - p.window + 1) / kBN * kBN;
+    } else {
+      int mt, nt;
+      causal_tile(blockIdx.x, mt, nt);
+      m0 = mt * kBM;
+      n0 = nt * kBN;
+    }
+    if (n0 > m0 + kBM - 1 || n0 >= p.n || m0 >= p.m) return;
+  }
+  bmm_tiles<kKMajor, true, kMask>(p, smem, m0, n0);
+}
+
 template <bool kKMajor>
 cudaError_t launch(const BmmArgs& p, bool fast, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((p.m + kBM - 1) / kBM),
@@ -526,10 +642,86 @@ extern "C" int qnn_q8bmm(int device, const void* a, const void* b,
                   g, g1, sa0, sa1, lda, sb0, sb1, ldb, so0, so1, ldo,
                   m, n, k, za, zb, wa, wb,
                   qnn::Requant{scheme, multiplier, shift, zero_point, qmin,
-                               qmax, scale}};
+                               qmax, scale},
+                  1, 0};
   const bool fast =
       wa == 16 && wb == (b_kmajor ? 16 : 4) && k <= kChainSteps * kStep;
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(b_kmajor ? launch<true>(p, fast, s)
                                    : launch<false>(p, fast, s));
+}
+
+// The masked products of attention (kernels/q8bmm.py q8bmm_masked_cuda):
+// mode 1 (kScores) the scores, A [.., M, K] x B [.., K, N] with M = N the
+// sequence, computing only the tiles that hold a pair of the mask; mode 2
+// (kContext) the context, A [.., M, K] the probabilities with K = M, each
+// row summed over its keys only.  window 0: causal; W > 0: the W keys
+// ending at the query.  B's batch entry is (z0, z1 / grp).  Strides as
+// qnn_q8bmm's, with the 16-byte copies and K <= 32,768 of its fast path,
+// and a per-tensor requantization.
+extern "C" int qnn_q8bmm_masked(int device, const void* a, const void* b,
+                                void* out, int64_t g, int64_t g1, int grp,
+                                int m, int n, int k, int64_t sa0,
+                                int64_t sa1, int64_t lda, int64_t sb0,
+                                int64_t sb1, int64_t ldb, int b_kmajor,
+                                int64_t so0, int64_t so1, int64_t ldo,
+                                int za, int zb, int mode, int window,
+                                int scheme, int multiplier, int shift,
+                                int zero_point, int qmin, int qmax,
+                                float scale, void* stream) {
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
+  if (g < 0 || g1 < 1 || g % g1 != 0 || grp < 1 || g1 % grp != 0 ||
+      m < 0 || n < 0 || k < 0 || (b_kmajor != 0 && b_kmajor != 1) ||
+      za < 0 || za > 255 || zb < 0 || zb > 255 || window < 0 ||
+      (mode != kScores && mode != kContext) ||
+      (mode == kScores ? m != n : m != k) ||
+      scheme == qnn::kFP32PerChannel || sa0 < 0 || sa1 < 0 || lda < 0 ||
+      sb0 < 0 || sb1 < 0 || ldb < 0 || so0 < 0 || so1 < 0 ||
+      (m > 1 && ldo < n) || (m + kBM - 1) / kBM > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (g == 0 || m == 0 || n == 0) return 0;
+  const int wa = im::copy_width(a, sa0 | sa1 | lda | k);
+  const int wb = b_kmajor ? im::copy_width(b, sb0 | sb1 | ldb | k)
+                          : (im::copy_width(b, sb0 | sb1 | ldb | n) >= 4 ? 4
+                                                                         : 1);
+  if (wa != 16 || wb != (b_kmajor ? 16 : 4) || k > kChainSteps * kStep) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BmmArgs p{static_cast<const uint8_t*>(a),
+                  static_cast<const uint8_t*>(b),
+                  nullptr,
+                  static_cast<uint8_t*>(out),
+                  g, g1, sa0, sa1, lda, sb0, sb1, ldb, so0, so1, ldo,
+                  m, n, k, za, zb, wa, wb,
+                  qnn::Requant{scheme, multiplier, shift, zero_point, qmin,
+                               qmax, scale},
+                  grp, window};
+  // The N tiles a row tile needs: all (the context), or the band's
+  // (window scores); the causal scores walk their triangle in blockIdx.x.
+  const int tiles_m = (m + kBM - 1) / kBM;
+  int64_t tiles_n = (n + kBN - 1) / kBN;
+  if (mode == kScores && window > 0) {
+    tiles_n = min(tiles_n, int64_t{(kBM + window + kBN - 3) / kBN + 1});
+  }
+  const bool triangle = mode == kScores && window == 0;
+  const dim3 grid(static_cast<unsigned>(
+                      triangle ? int64_t{kRatio} * tiles_m * (tiles_m + 1) / 2
+                               : tiles_n),
+                  static_cast<unsigned>(triangle ? 1 : tiles_m),
+                  static_cast<unsigned>(g < 65535 ? g : 65535));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (mode == kScores && b_kmajor) {
+    q8bmm_masked_kernel<true, kScores><<<grid, kThreads, 0, s>>>(p);
+  } else if (mode == kScores) {
+    q8bmm_masked_kernel<false, kScores><<<grid, kThreads, 0, s>>>(p);
+  } else if (b_kmajor) {
+    q8bmm_masked_kernel<true, kContext><<<grid, kThreads, 0, s>>>(p);
+  } else {
+    q8bmm_masked_kernel<false, kContext><<<grid, kThreads, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -255,11 +255,27 @@ __global__ void __launch_bounds__(qnn::wgmma::kThreads, 1)
   qnn::wgmma::run<qnn::wgmma::Tile<BN, STAGES>>(p, ring);
 }
 
-template <class T>
+// The grouped instance (wgmma_tile.cuh run<T, true>): the experts' live
+// tiles, their count read from the device.  A name of its own, so that a
+// trace tells the experts' GEMMs from the dense projections.
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(qnn::wgmma::kThreads, 1)
+    q8gemm_grouped_kernel(const __grid_constant__ qnn::wgmma::Args p) {
+  extern __shared__ __align__(16) uint8_t ring[];
+  __shared__ int start[qnn::wgmma::kMaxExperts + 1];
+  qnn::wgmma::run<qnn::wgmma::Tile<BN, STAGES>, true>(p, ring, start);
+}
+
+// A wgmma launch: kGrouped the grouped instance over `experts` segments
+// of `cap` rows (g.m = experts * cap), whose live rows `counts` holds.
+template <class T, bool kGrouped = false>
 cudaError_t launch_wgmma(const GemmArgs& g, int device,
-                         cudaStream_t stream) {
+                         cudaStream_t stream,
+                         const int32_t* counts = nullptr, int experts = 0,
+                         int cap = 0) {
   namespace wg = qnn::wgmma;
-  void (*const kernel)(const wg::Args) = q8gemm_kernel<T::BN, T::kStages>;
+  void (*kernel)(const wg::Args) = q8gemm_kernel<T::BN, T::kStages>;
+  if constexpr (kGrouped) kernel = q8gemm_grouped_kernel<T::BN, T::kStages>;
   static unsigned ready = 0;
   static int sms[32] = {};
   if (device < 0 || device >= 32) return cudaErrorInvalidDevice;
@@ -275,7 +291,8 @@ cudaError_t launch_wgmma(const GemmArgs& g, int device,
   }
   wg::Args p{};
   if (!wg::encode_rows(&p.a_map, g.a, g.k, g.m, wg::BM) ||
-      !wg::encode_rows(&p.w_map, g.w, g.kp, g.n, T::BN)) {
+      !wg::encode_rows(&p.w_map, g.w, g.kp,
+                       kGrouped ? int64_t{experts} * g.n : g.n, T::BN)) {
     return cudaErrorInvalidValue;
   }
   p.bias_c = g.bias_c;
@@ -292,6 +309,9 @@ cudaError_t launch_wgmma(const GemmArgs& g, int device,
   p.pairs = reinterpret_cast<uintptr_t>(g.bias_c) % 8 == 0 &&
             reinterpret_cast<uintptr_t>(g.scales) % 8 == 0;
   p.rp = g.rp;
+  p.counts = counts;
+  p.experts = experts;
+  p.cap = cap;
   const int grid = p.tiles < sms[device] ? p.tiles : sms[device];
   kernel<<<grid, wg::kThreads, T::kSmemBytes, stream>>>(p);
   return cudaGetLastError();
@@ -405,6 +425,49 @@ extern "C" int qnn_q8gemm_partial(int device, const void* a, const void* w,
   p.acc_out = static_cast<int32_t*>(acc_out);
   return static_cast<int>(launch_tile<kPartial>(
       p, tile, device, static_cast<cudaStream_t>(stream)));
+}
+
+// The grouped instance of an expert layer (kernels/q8gemm.py
+// q8gemm_grouped_cuda): A [experts * cap, K], expert e's rows at e * cap of
+// which counts[e] (int32, on the device) are live; W' [experts * N, kp]
+// and c [experts * N] each expert's K-major weights and c one after
+// another; out [experts * cap, N], its live rows written.  The persistent
+// grid is sized for every row live.  N % 256 == 0, K % 16 == 0, A 16-byte
+// aligned, kp within one int32 chain, a per-tensor requantization.
+extern "C" int qnn_q8gemm_grouped(int device, const void* a, const void* w,
+                                  const void* bias_c, void* out,
+                                  const void* counts, int experts, int cap,
+                                  int n, int k, int kp, int kzp_biased,
+                                  int scheme, int multiplier, int shift,
+                                  int zero_point, int qmin, int qmax,
+                                  float scale, void* stream) {
+  const qnn::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
+  const int64_t m = static_cast<int64_t>(experts) * cap;
+  if (experts < 1 || experts > qnn::wgmma::kMaxExperts || cap < 0 ||
+      n < 1 || n % qnn::wgmma::Tile128x256::BN != 0 || k < 16 ||
+      k % 16 != 0 || scheme == qnn::kFP32PerChannel || counts == nullptr ||
+      m > (int64_t{1} << 31) - qnn::wgmma::BM ||
+      !plan_ok(w, k, kp, 1, kp / im::kStepK, nullptr, nullptr) ||
+      kp / im::kStepK > im::kMaxChainSteps ||
+      im::copy_width(a, k) != 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (m == 0) return 0;
+  const GemmArgs p{static_cast<const uint8_t*>(a),
+                   static_cast<const int8_t*>(w),
+                   static_cast<const int32_t*>(bias_c),
+                   nullptr,
+                   static_cast<uint8_t*>(out),
+                   m, n, k, kp, 16, kzp_biased,
+                   qnn::Requant{scheme, multiplier, shift, zero_point, qmin,
+                                qmax, scale},
+                   im::Split{1, kp / im::kStepK, nullptr, nullptr}};
+  return static_cast<int>(launch_wgmma<qnn::wgmma::Tile128x256, true>(
+      p, device, static_cast<cudaStream_t>(stream),
+      static_cast<const int32_t*>(counts), experts, cap));
 }
 
 extern "C" const char* qnn_error_string(int code) {

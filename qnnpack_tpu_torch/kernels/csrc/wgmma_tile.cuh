@@ -48,6 +48,13 @@
 //     scripts/bench_imma.py);
 //   - every int32 chain is exact: the wrapper sends no K deeper than
 //     kMaxChainSteps steps of 64 here, and no instruction saturates.
+//
+// The grouped instance (q8gemm.cu q8gemm_grouped_kernel, an expert
+// layer's GEMMs) runs the same block over `experts` segments of A and of
+// the output, `cap` rows each, with expert e's weights at rows e * N of W'
+// and its c at e * N: each block reads the live row counts (written on the
+// device by the routing) once and walks the live tiles of every expert in
+// turn, so a grid sized for every row live spends nothing on the rest.
 #pragma once
 
 #include <cuda.h>
@@ -102,6 +109,21 @@ struct Args {
   int tiles_n, tiles;
   int pairs;  // bias_c and scales are 8-byte aligned: two a load
   Requant rp;
+  // The grouped instance: `experts` segments of `cap` rows of A and of the
+  // output, counts[e] of them live; expert e's weights are rows e * n of
+  // W' and its c at bias_c + e * n.
+  const int32_t* counts;
+  int experts, cap;
+};
+
+constexpr int kMaxExperts = 32;  // of the grouped instance
+
+// Where a tile of the walk lies: its first row of A and of the output, its
+// first column, its first row of W', its c, and the end of its rows.
+struct TileAt {
+  int m0, n0, w_row;
+  const int32_t* bias;
+  int row_end;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -302,6 +324,7 @@ template <class T, int S, bool EDGE>
 __device__ __forceinline__ void stage_tile(const int32_t (&acc)[T::BN / 2],
                                            uint32_t zp0, uint32_t zp1,
                                            uint8_t* stage, int n0,
+                                           const int32_t* bias_c,
                                            const Args& p, int tid) {
   Requant rp = p.rp;
   if constexpr (S >= 0) rp.scheme = S;
@@ -321,7 +344,7 @@ __device__ __forceinline__ void stage_tile(const int32_t (&acc)[T::BN / 2],
     int32_t b0 = 0, b1 = 0;
     float s0 = rp.scale, s1 = rp.scale;
     if constexpr (!EDGE) {
-      const int2 b = __ldg(reinterpret_cast<const int2*>(p.bias_c + gn));
+      const int2 b = __ldg(reinterpret_cast<const int2*>(bias_c + gn));
       b0 = b.x;
       b1 = b.y;
       if constexpr (S == kFP32PerChannel) {
@@ -331,11 +354,11 @@ __device__ __forceinline__ void stage_tile(const int32_t (&acc)[T::BN / 2],
       }
     } else {
       if (gn < p.n) {
-        b0 = __ldg(p.bias_c + gn);
+        b0 = __ldg(bias_c + gn);
         if (channels) s0 = __ldg(p.scales + gn);
       }
       if (gn + 1 < p.n) {
-        b1 = __ldg(p.bias_c + gn + 1);
+        b1 = __ldg(bias_c + gn + 1);
         if (channels) s1 = __ldg(p.scales + gn + 1);
       }
     }
@@ -354,11 +377,12 @@ __device__ __forceinline__ void stage_tile(const int32_t (&acc)[T::BN / 2],
 }
 
 // The epilogue's second pass: the warpgroup's staged rows (from row m0 of
-// the output) stored as 16-byte runs, whole words or bytes at a ragged or
-// unaligned end.
+// the output, up to row_end) stored as 16-byte runs, whole words or bytes
+// at a ragged or unaligned end.
 template <class T>
 __device__ __forceinline__ void store_stage(const uint8_t* stage, int64_t m0,
-                                            int n0, const Args& p, int tid) {
+                                            int n0, int64_t row_end,
+                                            const Args& p, int tid) {
   constexpr int kChunks = T::BN / 16;
 #pragma unroll
   for (int i = 0; i < 64 * kChunks / 128; ++i) {
@@ -367,7 +391,7 @@ __device__ __forceinline__ void store_stage(const uint8_t* stage, int64_t m0,
     const int c = idx % kChunks;
     const int64_t gm = m0 + r;
     const int gn = n0 + c * 16;
-    if (gm >= p.m || gn >= p.n) continue;
+    if (gm >= row_end || gn >= p.n) continue;
     const uint4 v = *reinterpret_cast<const uint4*>(
         stage + r * T::BN + ((c ^ (r & 7)) << 4));
     uint8_t* dst = p.out + gm * p.n + gn;
@@ -393,38 +417,67 @@ template <class T>
 __device__ __forceinline__ void epilogue_rows(const int32_t (&acc)[T::BN / 2],
                                               const int32_t (&rs)[4],
                                               bool row_sums, uint8_t* stage,
-                                              int n0, const Args& p,
-                                              int tid) {
+                                              int n0, const int32_t* bias_c,
+                                              const Args& p, int tid) {
   const uint32_t kzp = static_cast<uint32_t>(p.kzp_biased);
   const uint32_t zp0 = row_sums ? kzp * static_cast<uint32_t>(rs[0]) : 0u;
   const uint32_t zp1 = row_sums ? kzp * static_cast<uint32_t>(rs[2]) : 0u;
   if (n0 + T::BN > p.n || !p.pairs) {
-    stage_tile<T, -1, true>(acc, zp0, zp1, stage, n0, p, tid);
+    stage_tile<T, -1, true>(acc, zp0, zp1, stage, n0, bias_c, p, tid);
     return;
   }
   switch (p.rp.scheme) {
     case kQ31:
-      stage_tile<T, kQ31, false>(acc, zp0, zp1, stage, n0, p, tid);
+      stage_tile<T, kQ31, false>(acc, zp0, zp1, stage, n0, bias_c, p,
+                                 tid);
       break;
     case kFP32:
-      stage_tile<T, kFP32, false>(acc, zp0, zp1, stage, n0, p, tid);
+      stage_tile<T, kFP32, false>(acc, zp0, zp1, stage, n0, bias_c, p,
+                                  tid);
       break;
     case kPrecise:
-      stage_tile<T, kPrecise, false>(acc, zp0, zp1, stage, n0, p, tid);
+      stage_tile<T, kPrecise, false>(acc, zp0, zp1, stage, n0, bias_c, p,
+                                     tid);
       break;
     case kGemmlowp:
-      stage_tile<T, kGemmlowp, false>(acc, zp0, zp1, stage, n0, p, tid);
+      stage_tile<T, kGemmlowp, false>(acc, zp0, zp1, stage, n0, bias_c, p,
+                                      tid);
       break;
     default:
-      stage_tile<T, kFP32PerChannel, false>(acc, zp0, zp1, stage, n0, p,
-                                            tid);
+      stage_tile<T, kFP32PerChannel, false>(acc, zp0, zp1, stage, n0,
+                                            bias_c, p, tid);
+  }
+}
+
+// Tile `tile` of the walk.  The plain instance walks the M x N tiles
+// N-block fastest; the grouped one walks each expert's live tiles in turn,
+// its tile counts `start` (start[e] tiles before expert e) read from
+// counts once a block.
+template <class T, bool kGrouped>
+__device__ __forceinline__ TileAt tile_at(const Args& p, int tile,
+                                          const int* start) {
+  if constexpr (!kGrouped) {
+    const int n0 = (tile % p.tiles_n) * T::BN;
+    return {(tile / p.tiles_n) * BM, n0, n0, p.bias_c, p.m};
+  } else {
+    int e = 0;
+    while (tile >= start[e + 1]) ++e;
+    const int local = tile - start[e];
+    const int n0 = (local % p.tiles_n) * T::BN;
+    const int seg = e * p.cap;
+    return {seg + (local / p.tiles_n) * BM, n0, e * p.n + n0,
+            p.bias_c + static_cast<int64_t>(e) * p.n,
+            seg + __ldg(p.counts + e)};
   }
 }
 
 // One block of the persistent grid; `raw` is the kernel's dynamic shared
-// memory (T::kSmemBytes).
-template <class T>
-__device__ __forceinline__ void run(const Args& p, uint8_t* raw) {
+// memory (T::kSmemBytes).  kGrouped: the grouped instance, whose tiles are
+// the experts' live ones (tile_at), with `start` kMaxExperts + 1 ints of
+// the kernel's shared memory.
+template <class T, bool kGrouped = false>
+__device__ __forceinline__ void run(const Args& p, uint8_t* raw,
+                                    int* start = nullptr) {
   uint8_t* ring = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   uint8_t* ones = ring + T::kStages * T::kStageBytes;
   uint8_t* out_stage = ones + T::kOnesBytes;
@@ -443,10 +496,20 @@ __device__ __forceinline__ void run(const Args& p, uint8_t* raw) {
     reinterpret_cast<uint4*>(ones)[i] =
         make_uint4(0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u);
   }
+  if constexpr (kGrouped) {
+    if (threadIdx.x == 0) {
+      start[0] = 0;
+      for (int e = 0; e < p.experts; ++e) {
+        start[e + 1] = start[e] + (__ldg(p.counts + e) + BM - 1) / BM *
+                                      p.tiles_n;
+      }
+    }
+  }
   // The ones were written by the generic proxy; wgmma reads them through
   // the async proxy.
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
+  const int tiles = kGrouped ? start[p.experts] : p.tiles;
 
   if (wg == 2) {
     // The producer: one thread issues every load of the block's tiles.
@@ -456,15 +519,15 @@ __device__ __forceinline__ void run(const Args& p, uint8_t* raw) {
       prefetch_map(&p.w_map);
       int s = 0;
       uint32_t phase = 0;
-      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const int m0 = (tile / p.tiles_n) * BM;
-        const int n0 = (tile % p.tiles_n) * T::BN;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const TileAt at = tile_at<T, kGrouped>(p, tile, start);
         for (int ks = 0; ks < ksteps; ++ks) {
           mbar_wait(empty + s, phase ^ 1);
           uint8_t* sa = ring + s * T::kStageBytes;
           mbar_expect_tx(full + s, T::kStageBytes);
-          tma_load(sa, &p.a_map, full + s, ks * kStepBytes, m0);
-          tma_load(sa + T::kABytes, &p.w_map, full + s, ks * kStepBytes, n0);
+          tma_load(sa, &p.a_map, full + s, ks * kStepBytes, at.m0);
+          tma_load(sa + T::kABytes, &p.w_map, full + s, ks * kStepBytes,
+                   at.w_row);
           if (++s == T::kStages) {
             s = 0;
             phase ^= 1;
@@ -488,9 +551,8 @@ __device__ __forceinline__ void run(const Args& p, uint8_t* raw) {
     for (int i = 0; i < 4; ++i) rs[i] = 0;
     int s = 0;
     uint32_t phase = 0;
-    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const int m0 = (tile / p.tiles_n) * BM;
-      const int n0 = (tile % p.tiles_n) * T::BN;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const TileAt at = tile_at<T, kGrouped>(p, tile, start);
       int prev = 0;
       for (int ks = 0; ks < ksteps; ++ks) {
         mbar_wait(full + s, phase);
@@ -532,9 +594,9 @@ __device__ __forceinline__ void run(const Args& p, uint8_t* raw) {
       if (lane == 0) mbar_arrive(empty + prev);
       __syncwarp();
       warpgroup_sync(1 + wg);  // the last tile's rows are stored
-      epilogue_rows<T>(acc, rs, row_sums, stage, n0, p, tid);
+      epilogue_rows<T>(acc, rs, row_sums, stage, at.n0, at.bias, p, tid);
       warpgroup_sync(1 + wg);
-      store_stage<T>(stage, m0 + 64 * wg, n0, p, tid);
+      store_stage<T>(stage, at.m0 + 64 * wg, at.n0, at.row_end, p, tid);
     }
   }
 }

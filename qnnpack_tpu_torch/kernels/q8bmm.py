@@ -164,3 +164,102 @@ def q8bmm_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor, a_zero_point: int,
 
 
 q8bmm_cuda.launches = 0
+
+
+# Masks of q8bmm_masked: the pairs (query i, key j) that attention reads.
+SCORES, CONTEXT = 1, 2
+
+
+def valid_keys(s: int, window: int, device=None) -> torch.Tensor:
+    """bool [S, S]: key j is read by query i.  window 0: causal, j <= i;
+    window W > 0: the band i - W + 1 <= j <= i."""
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    keep = j <= i
+    if window > 0:
+        keep &= j > i - window
+    return keep
+
+
+def kv_heads_of(heads: int, kv_heads: int, device=None) -> torch.Tensor:
+    """The key/value head each query head reads (grouped-query attention):
+    h * kv_heads // heads, which is h // (heads / kv_heads) where that
+    divides."""
+    return torch.arange(heads, device=device) * kv_heads // heads
+
+
+def q8bmm_masked_plain(a_u8, b_u8, a_zero_point: int, b_zero_point: int,
+                       rparams, mode: int, window: int):
+    """Plain version of the masked kernel, [B, H, ...] operands, B with
+    [B, Hkv, ...] leading axes (query head h reads b[:, h * Hkv // H]).
+
+    mode SCORES: A [B, H, S, K] x B [B, Hkv, K, S] -> [B, H, S, S]; the
+    entries outside the mask are 0 here, and unspecified in the kernel's
+    output (softargmax reads only the valid ones).  mode CONTEXT: A
+    [B, H, S, S] (the probabilities, read only inside the mask) x B
+    [B, Hkv, S, N] -> [B, H, S, N], each row summing over its valid
+    keys."""
+    h, hkv = a_u8.shape[1], b_u8.shape[1]
+    b_full = b_u8[:, kv_heads_of(h, hkv, b_u8.device)]
+    s = a_u8.shape[-2]
+    keep = valid_keys(s, window, a_u8.device)
+    if mode == CONTEXT:
+        a_u8 = torch.where(keep, a_u8, torch.full_like(a_u8, a_zero_point))
+        return q8bmm_plain(a_u8, b_full, a_zero_point, b_zero_point, rparams)
+    y = q8bmm_plain(a_u8, b_full, a_zero_point, b_zero_point, rparams)
+    return torch.where(keep, y, torch.zeros_like(y))
+
+
+def q8bmm_masked_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor,
+                      a_zero_point: int, b_zero_point: int, rparams,
+                      mode: int, window: int, out=None):
+    """The masked products of attention on 4-D views, with grouped-query
+    attention: query head h of A [B, H, ...] reads head h // (H / Hkv) of
+    B [B, Hkv, ...] (H a multiple of Hkv).  mode SCORES computes only the
+    output tiles that hold a pair of the mask (window 0: causal; W: the
+    band of W keys ending at the query); mode CONTEXT sums each row over
+    its valid keys only, the others taken as A's zero point.  Any
+    per-tensor requant scheme; the layouts are bmm_layout's."""
+    if mode not in (SCORES, CONTEXT) or window < 0:
+        raise ValueError(f"mode {mode}, window {window}")
+    if a_u8.dim() != 4 or b_u8.dim() != 4 or \
+            a_u8.shape[0] != b_u8.shape[0]:
+        raise ValueError(f"expected [B, H, M, K] and [B, Hkv, K, N], got "
+                         f"{tuple(a_u8.shape)} and {tuple(b_u8.shape)}")
+    bsz, h, m, k = a_u8.shape
+    hkv, n = b_u8.shape[1], b_u8.shape[-1]
+    square = (m, n) if mode == SCORES else (m, k)
+    if square[0] != square[1]:
+        raise ValueError(f"the masked axes differ: {square}")
+    if a_u8.device.type == "cpu" and b_u8.device.type == "cpu":
+        y = q8bmm_masked_plain(a_u8, b_u8, a_zero_point, b_zero_point,
+                               rparams, mode, window)
+        return y if out is None else out.copy_(y)
+    if h % hkv:
+        raise ValueError(f"{h} query heads over {hkv} key/value heads")
+    # bmm_layout judges the strides on B's view expanded to H heads.
+    layout = bmm_layout(a_u8, b_u8[:, :1].expand(bsz, h, *b_u8.shape[2:]),
+                        out)
+    check_strided_cuda("a", a_u8, (4,))
+    check_strided_cuda("b", b_u8, (4,))
+    if out is None:
+        out = torch.empty((bsz, h, m, n), dtype=torch.uint8,
+                          device=a_u8.device)
+    else:
+        check_strided_cuda("out", out, (4,))
+    scales, rq = _build.requant_args(rparams, n, a_u8.device)
+    if scales is not None:
+        raise ValueError("q8bmm_masked takes per-tensor requantization")
+    g, g1, sa, (sb0, _, ldb), b_kmajor, so = layout
+    if g == 0 or m == 0 or n == 0:
+        return out
+    _build.launch(
+        "qnn_q8bmm_masked", a_u8.device.index or 0, a_u8.data_ptr(),
+        b_u8.data_ptr(), out.data_ptr(), g, g1, h // hkv, m, n, k, *sa,
+        sb0, _stride(b_u8, 1), ldb, int(b_kmajor), *so, a_zero_point,
+        b_zero_point, mode, window, *rq[:6], rq[6], _build.stream_of(a_u8))
+    q8bmm_masked_cuda.launches += 1
+    return out
+
+
+q8bmm_masked_cuda.launches = 0

@@ -389,3 +389,65 @@ def _launch(a_u8, packed: PackedGemmWeights, rparams, rs_in=None,
 
 
 q8gemm_cuda.launches = 0
+
+
+def q8gemm_grouped_plain(a_u8: torch.Tensor, packed, counts: torch.Tensor,
+                         cap: int, rparams):
+    """Plain version of the grouped instance: A [E * cap, K], expert e's
+    rows at e * cap, of which the first counts[e] are live -> [E * cap, N],
+    each live row through its expert's weights; the other rows are 0 here
+    and unspecified in the kernel's output."""
+    from .moe import live_rows
+    e = packed.experts
+    a = a_u8.reshape(e, cap, packed.k)
+    acc = torch.cat([gemm_acc_plain(a[i], packed.w[i], packed.bias_folded[i],
+                                    packed.kzp_biased) for i in range(e)])
+    y = apply_requant(acc, rparams)
+    live = live_rows(counts.to(a_u8.device), cap)
+    return torch.where(live[:, None], y, torch.zeros_like(y))
+
+
+def q8gemm_grouped_cuda(a_u8: torch.Tensor, packed, counts: torch.Tensor,
+                        cap: int, rparams):
+    """The grouped GEMM of an expert layer: A [E * cap, K] holds expert
+    e's rows at e * cap, and counts (int32 [E], on the device, written by
+    an earlier kernel) says how many of them are live.  One launch of the
+    wgmma instance walks every live 128 x 256 tile of every expert; the
+    persistent grid is sized for the worst case (every row live), and the
+    count is read on the device, so a CUDA graph holds the launch
+    whatever the routing.  The wrapper counts moe.grouped_launches while
+    a graph is being captured."""
+    if a_u8.dim() != 2 or a_u8.shape != (packed.experts * cap, packed.k) \
+            or tuple(counts.shape) != (packed.experts,):
+        raise ValueError(f"rows {tuple(a_u8.shape)}, counts "
+                         f"{tuple(counts.shape)} for {packed.experts} "
+                         f"experts of {cap} rows and K = {packed.k}")
+    if a_u8.device.type == "cpu":
+        return q8gemm_grouped_plain(a_u8, packed, counts, cap, rparams)
+    _build.check_cuda("a", a_u8, torch.uint8, 2)
+    _build.check_cuda("counts", counts, torch.int32, 1)
+    _build.check_cuda("w_kmajor", packed.w_kmajor, torch.int8, 2)
+    if packed.n % TILES[WGMMA_TILE][1] or packed.k % 16 or \
+            a_u8.data_ptr() % 16:
+        raise ValueError(f"the grouped instance takes N % "
+                         f"{TILES[WGMMA_TILE][1]} == 0, K % 16 == 0 and a "
+                         f"16-byte aligned A, got N {packed.n}, K {packed.k}")
+    scales, rq = _build.requant_args(rparams, packed.n, a_u8.device)
+    if scales is not None:
+        raise ValueError("q8gemm_grouped takes per-tensor requantization")
+    out = torch.empty((a_u8.shape[0], packed.n), dtype=torch.uint8,
+                      device=a_u8.device)
+    _build.launch(
+        "qnn_q8gemm_grouped", a_u8.device.index or 0, a_u8.data_ptr(),
+        packed.w_kmajor.data_ptr(), packed.bias_c.data_ptr(), out.data_ptr(),
+        counts.data_ptr(), packed.experts, cap, packed.n, packed.k,
+        packed.w_kmajor.shape[1], packed.kzp_biased, *rq,
+        _build.stream_of(a_u8))
+    q8gemm_grouped_cuda.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        from ..utils import profiling
+        profiling.count("moe.grouped_launches")
+    return out
+
+
+q8gemm_grouped_cuda.launches = 0

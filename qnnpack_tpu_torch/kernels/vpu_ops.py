@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from ..quant.params import AddQuantParams, ClampParams
+from ..nn.requant_dispatch import apply_requant
+from ..quant.params import AddQuantParams, ClampParams, FP32Params
 from ..quant.requantize import add_quantize, clamp_u8
 from . import _build
 
@@ -167,3 +168,173 @@ def u8lut32norm_cuda(x_u8, rmax_u8, lut):
 
 u8lut32norm_cuda.launches = 0
 u8lut32norm_cuda.instance = None  # (vec, lanes) of the last launch
+
+
+def u8softmax_masked_plain(x_u8, lut, window: int, sinks=None):
+    """Plain version of u8softmax_masked: softargmax over each row's valid
+    keys of scores [G, S, S] (row i of a [S, S] block reads keys j <= i,
+    and with window W > 0 only j > i - W), a new tensor whose entries
+    outside the mask are 0.  `sinks`, uint8 [H] or None, is one more
+    virtual entry of each row of head g % H in the max and the sum, with
+    no output; `lut` is int32 [256] holding the uint32 table.  The
+    arithmetic is u8lut32norm_plain's, wrapping in uint32."""
+    from .q8bmm import valid_keys
+    g, s, _ = x_u8.shape
+    keep = valid_keys(s, window, x_u8.device)
+    t = lut.to(torch.int64) & 0xFFFFFFFF
+    x = x_u8.to(torch.int64)
+    m = torch.where(keep, x, 0).amax(dim=-1, keepdim=True)
+    if sinks is not None:
+        sink = sinks.to(torch.int64).repeat(g // sinks.numel())[:, None, None]
+        m = torch.maximum(m, sink)
+    e = torch.where(keep, t[torch.where(keep, x, m) + 255 - m], 0)
+    s_ = e.sum(dim=-1, keepdim=True)
+    if sinks is not None:
+        s_ = s_ + t[sink + 255 - m]
+    s_ = s_ & 0xFFFFFFFF
+    num = (e * 256 + (s_ >> 1)) & 0xFFFFFFFF
+    q = torch.where(s_ == 0, 0xFFFFFFFF, num // s_.clamp(min=1))
+    return torch.where(keep, q.clamp(max=255), 0).to(torch.uint8)
+
+
+def u8softmax_masked_cuda(x_u8, lut, window: int, sinks=None):
+    """Masked softargmax of scores [G, S, S] in place: each row's valid
+    entries become their probabilities (scale 1/256, zero point 0), the
+    others are left unspecified (q8bmm_masked's CONTEXT mode reads only the
+    valid ones); returns x_u8.  One kernel reads the row's valid bytes
+    once, takes their max (and the sink's), sums the table's entries and
+    normalizes, as u8rmax and u8lut32norm do in two."""
+    if x_u8.dim() != 3 or x_u8.shape[1] != x_u8.shape[2]:
+        raise ValueError(f"expected scores [G, S, S], got "
+                         f"{tuple(x_u8.shape)}")
+    if sinks is not None and x_u8.shape[0] % sinks.numel():
+        raise ValueError(f"{sinks.numel()} sinks for {x_u8.shape[0]} "
+                         "score blocks")
+    devices = {x_u8.device.type, lut.device.type} | (
+        set() if sinks is None else {sinks.device.type})
+    if devices == {"cpu"}:
+        return x_u8.copy_(u8softmax_masked_plain(x_u8, lut, window, sinks))
+    _build.check_cuda("x", x_u8, torch.uint8, 3)
+    _build.check_cuda("lut", lut, torch.int32, 1)
+    if sinks is not None:
+        _build.check_cuda("sinks", sinks, torch.uint8, 1)
+    g, s, _ = x_u8.shape
+    _build.launch("qnn_u8softmax_masked", x_u8.device.index or 0,
+                  x_u8.data_ptr(), lut.data_ptr(),
+                  None if sinks is None else sinks.data_ptr(), g * s, s, s,
+                  1 if sinks is None else sinks.numel(), window,
+                  _build.stream_of(x_u8))
+    u8softmax_masked_cuda.launches += 1
+    return x_u8
+
+
+u8softmax_masked_cuda.launches = 0
+
+
+def q8rope_plain(x_u8, cos, sin, heads: int, head_dim: int, seq: int,
+                 rparams):
+    """Plain version of q8rope on rows [T, >= heads * head_dim] (row t at
+    position t % seq), a new [T, heads * head_dim] tensor: dims i and
+    i + R/2 (i < R/2, R = 2 * cos.shape[1]) of each head rotate by the
+    tables, the rest pass through:
+        y_i      = requant((x_i - z) C - (x_{i+R/2} - z) S)
+        y_{i+R/2} = requant((x_{i+R/2} - z) C + (x_i - z) S)
+    with C, S int32 [seq, R/2] and z the params' zero point."""
+    t = x_u8.shape[0]
+    half = cos.shape[1]
+    x = x_u8[:, :heads * head_dim].reshape(t, heads, head_dim)
+    z = rparams.zero_point
+    pos = torch.arange(t, device=x_u8.device) % seq
+    c = cos.to(torch.int64)[pos][:, None, :]
+    s = sin.to(torch.int64)[pos][:, None, :]
+    a = x[..., :half].to(torch.int64) - z
+    b = x[..., half:2 * half].to(torch.int64) - z
+    y = x.clone()
+    y[..., :half] = apply_requant(a * c - b * s, rparams)
+    y[..., half:2 * half] = apply_requant(b * c + a * s, rparams)
+    return y.reshape(t, heads * head_dim)
+
+
+def q8rope_cuda(x_u8, cos, sin, heads: int, head_dim: int, seq: int,
+                rparams):
+    """Partial rotary embedding in place on the first heads * head_dim
+    columns of rows [T, ld] (a view with rows at any stride, columns at
+    stride 1; row t at position t % seq); fp32 requantization with the
+    input's zero point.  Returns x_u8."""
+    half = cos.shape[1]
+    if x_u8.dim() != 2 or x_u8.shape[1] < heads * head_dim or \
+            2 * half > head_dim or tuple(sin.shape) != tuple(cos.shape) or \
+            cos.shape[0] < seq:
+        raise ValueError(f"rows {tuple(x_u8.shape)}, tables "
+                         f"{tuple(cos.shape)}, {heads} x {head_dim}")
+    if x_u8.device.type == "cpu":
+        x_u8[:, :heads * head_dim] = q8rope_plain(x_u8, cos, sin, heads,
+                                                  head_dim, seq, rparams)
+        return x_u8
+    if not isinstance(rparams, FP32Params) or x_u8.stride(1) != 1:
+        raise ValueError("q8rope takes fp32 requantization and columns at "
+                         "stride 1")
+    _build.check_cuda("cos", cos, torch.int32, 2)
+    _build.check_cuda("sin", sin, torch.int32, 2)
+    _build.launch("qnn_q8rope", x_u8.device.index or 0, x_u8.data_ptr(),
+                  cos.data_ptr(), sin.data_ptr(), x_u8.shape[0],
+                  x_u8.stride(0), heads, head_dim, half, seq,
+                  rparams.zero_point, rparams.scale, _build.stream_of(x_u8))
+    q8rope_cuda.launches += 1
+    return x_u8
+
+
+q8rope_cuda.launches = 0
+
+
+def q8swiglu_plain(gu_u8, silu_lut, width: int, z_silu: int, z_up: int,
+                   rparams, counts=None, cap: int = 0):
+    """Plain version of q8swiglu: rows [R, 2 W] holding gate | up ->
+    [R, W], requant((silu_lut[g] - z_silu) (u - z_up)).  With `counts`
+    the rows are segments of `cap` of which the first counts[e] are live;
+    the rest are 0 here and unspecified in the kernel's output."""
+    g = gu_u8[:, :width]
+    u = gu_u8[:, width:2 * width]
+    silu = silu_lut.to(gu_u8.device)[g.to(torch.int64)].to(torch.int64)
+    y = apply_requant((silu - z_silu) * (u.to(torch.int64) - z_up), rparams)
+    if counts is None:
+        return y
+    from .moe import live_rows
+    live = live_rows(counts.to(gu_u8.device), cap)
+    return torch.where(live[:, None], y, torch.zeros_like(y))
+
+
+def q8swiglu_cuda(gu_u8, silu_lut, width: int, z_silu: int, z_up: int,
+                  rparams, counts=None, cap: int = 0):
+    """The SwiGLU product of a fused gate | up projection [R, 2 W] ->
+    uint8 [R, W]: the gate through the 256-entry SiLU table, times the
+    up, requantized (fp32).  With `counts` (int32 [E], on the device) only
+    the first counts[e] rows of each segment of `cap` are computed."""
+    if gu_u8.dim() != 2 or gu_u8.shape[1] != 2 * width or \
+            tuple(silu_lut.shape) != (256,):
+        raise ValueError(f"gate|up {tuple(gu_u8.shape)} for width {width}")
+    if counts is not None and gu_u8.shape[0] != counts.numel() * cap:
+        raise ValueError(f"{gu_u8.shape[0]} rows for {counts.numel()} "
+                         f"segments of {cap}")
+    if gu_u8.device.type == "cpu":
+        return q8swiglu_plain(gu_u8, silu_lut, width, z_silu, z_up, rparams,
+                              counts, cap)
+    if not isinstance(rparams, FP32Params):
+        raise ValueError("q8swiglu takes fp32 requantization")
+    _build.check_cuda("gu", gu_u8, torch.uint8, 2)
+    _build.check_cuda("silu_lut", silu_lut, torch.uint8, 1)
+    if counts is not None:
+        _build.check_cuda("counts", counts, torch.int32, 1)
+    out = torch.empty((gu_u8.shape[0], width), dtype=torch.uint8,
+                      device=gu_u8.device)
+    _build.launch("qnn_q8swiglu", gu_u8.device.index or 0, gu_u8.data_ptr(),
+                  silu_lut.data_ptr(), out.data_ptr(), gu_u8.shape[0], width,
+                  None if counts is None else counts.data_ptr(),
+                  0 if counts is None else counts.numel(), cap, z_silu,
+                  z_up, rparams.zero_point, rparams.scale,
+                  _build.stream_of(gu_u8))
+    q8swiglu_cuda.launches += 1
+    return out
+
+
+q8swiglu_cuda.launches = 0

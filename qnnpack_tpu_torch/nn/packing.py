@@ -148,3 +148,55 @@ def pack_gemm_weights(kernel, bias, input_zero_point: int,
             w=w, bias_folded=bias_folded, k=int(k), n=int(n),
             input_zero_point=int(input_zero_point),
             kernel_zero_point=int(kernel_zero_point))
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedGroupedWeights:
+    """The weights of E experts that one grouped GEMM launch runs, each an
+    [N, K] FC kernel packed as PackedGemmWeights packs it, stacked:
+
+    w:           int8 [E, K, N]  biased (value - 128), for the plain path
+    bias_folded: int32 [E, N]
+    w_kmajor:    int8 [E * N, Kp] every expert's K-major rows, one after
+                 another (expert e's at rows e * N)
+    bias_c:      int32 [E * N]    kmajor_bias of each expert's bias_folded
+    """
+
+    w: torch.Tensor
+    bias_folded: torch.Tensor
+    w_kmajor: torch.Tensor
+    bias_c: torch.Tensor
+    experts: int
+    k: int
+    n: int
+    input_zero_point: int
+    kernel_zero_point: int
+
+    @property
+    def kzp_biased(self) -> int:
+        return biased_zero_point(self.kernel_zero_point)
+
+
+def pack_grouped_weights(kernels, input_zero_point: int,
+                         kernel_zero_point: int, *, device=None
+                         ) -> PackedGroupedWeights:
+    """Pack E experts' FC kernels, uint8 [E, N, K], with zero biases, for
+    q8gemm's grouped instance.  Recorded as one span setup.pack."""
+    from ..utils import profiling
+    with profiling.span("setup.pack"):
+        kernels = as_tensor(kernels, torch.uint8, device)
+        e, n, k = kernels.shape
+        w = u8_to_biased_i8(kernels).transpose(1, 2).contiguous()  # [E,K,N]
+        w_sums = w.to(torch.int64).sum(dim=1)                       # [E, N]
+        bias_folded = fold_bias(torch.zeros_like(w_sums), w_sums, k,
+                                input_zero_point, kernel_zero_point)
+        wk = torch.zeros((e * n, round_up(k)), dtype=torch.int8,
+                         device=kernels.device)
+        wk[:, :k] = u8_to_biased_i8(kernels).reshape(e * n, k)
+        kzp = biased_zero_point(kernel_zero_point)
+        return PackedGroupedWeights(
+            w=w, bias_folded=bias_folded, w_kmajor=wk,
+            bias_c=kmajor_bias(bias_folded, w_sums, k, kzp).reshape(-1),
+            experts=int(e), k=int(k), n=int(n),
+            input_zero_point=int(input_zero_point),
+            kernel_zero_point=int(kernel_zero_point))

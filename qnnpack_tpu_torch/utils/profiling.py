@@ -41,6 +41,22 @@ The spans and counters the port records:
                  row-sum instances, and those that took the wgmma instance
                  (kernels/q8gemm.py wgmma_route); counted when launched,
                  so an eager run and a capture count and a replay does not
+  attn.rope, attn.masked, moe.route, moe.experts, moe.combine
+                 models/mimo_v2_flash.py: the rotary embedding, the masked
+                 scores, softargmax and context, the router and dispatch,
+                 the held experts' grouped GEMMs and SwiGLU, the combine;
+                 seen at the warm-up and the capture (a replay runs no
+                 Python), and as qnnpack:: ranges under a profiler
+  counters moe.grouped_launches and moe.grid_rows
+                 kernels/q8gemm.q8gemm_grouped_cuda, kernels/moe.
+                 moe_route_cuda: counted only while a graph is captured,
+                 the grouped GEMM's launches and the rows an expert
+                 layer's worst-case grid covers (held experts x tokens)
+  device counter moe.routed_rows (and moe.routed_rows.l<layer>)
+                 the held experts' live rows of the last forward, written
+                 by moe_route's kernel into a buffer of the model's spec
+                 (`watch`); read, with one device-to-host copy, only when
+                 counters() is called
 
 A port of qnnpack_tpu/utils/profiling.py besides.  `trace()` wraps
 torch.profiler (CPU and CUDA activity) and writes a Chrome trace;
@@ -123,6 +139,7 @@ class Recorder:
         self._local = threading.local()
         self._spans: dict = {}      # path -> [calls, total_ns, self_ns]
         self._counts: dict = {}
+        self._watched: dict = {}    # name -> a device tensor to sum
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -157,9 +174,21 @@ class Recorder:
             return {p: SpanTotal(c, t * 1e-9, s * 1e-9)
                     for p, (c, t, s) in self._spans.items()}
 
-    def counters(self) -> dict:
+    def watch(self, name: str, tensor: torch.Tensor) -> None:
+        """Make `name` a device counter: counters() reports the sum of
+        `tensor` as it is then (the latest watch of a name holds)."""
         with self._lock:
-            return dict(self._counts)
+            self._watched[name] = tensor
+
+    def counters(self) -> dict:
+        """Every counter, and the device counters read now (a copy from
+        the device, which waits for the work queued before it)."""
+        with self._lock:
+            out = dict(self._counts)
+            watched = dict(self._watched)
+        for name, tensor in watched.items():
+            out[name] = int(tensor.sum())
+        return out
 
     def reset(self) -> None:
         """Drop every aggregate and counter (spans still open are recorded
@@ -167,6 +196,7 @@ class Recorder:
         with self._lock:
             self._spans.clear()
             self._counts.clear()
+            self._watched.clear()
 
     def span_total(self, name: str, less: tuple = ()):
         """(calls, seconds) of the spans named `name` that no span of that
@@ -192,6 +222,7 @@ class Recorder:
 RECORDER = Recorder()   # the process's recorder, which the port writes to
 span = RECORDER.span
 count = RECORDER.count
+watch = RECORDER.watch
 totals = RECORDER.totals
 counters = RECORDER.counters
 reset = RECORDER.reset

@@ -215,7 +215,9 @@ def test_cpu_forward_launches_no_kernel():
         "q8gemm": 0, "q8dwconv": 0, "q8vadd": 0, "q8gavgpool": 0,
         "q8conv": 0, "q8stem": 0, "u8maxpool": 0, "q8avgpool": 0,
         "q8bmm": 0, "u8rmax": 0, "u8lut32norm": 0, "u8clamp": 0,
-        "q8gemm_partial": 0, "q8conv_partial": 0, "q8requant": 0}
+        "q8gemm_partial": 0, "q8conv_partial": 0, "q8requant": 0,
+        "q8gemm_grouped": 0, "q8bmm_masked": 0, "u8softmax_masked": 0,
+        "q8rope": 0, "q8swiglu": 0, "moe_route": 0, "moe_combine": 0}
 
 
 def test_cpu_resnet18_forward_launches_no_kernel():
@@ -254,21 +256,25 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 
 def test_four_kernels_with_no_library_calls():
-    """The thirteen kernel sources (four of the first slice, three of the
+    """The seventeen kernel sources (four of the first slice, three of the
     second, q8avgpool of the third, q8bmm, u8rmax, u8lut32norm and u8clamp
-    of the fourth, q8requant of the parallel layer) and their shared
+    of the fourth, q8requant of the parallel layer, q8rope, q8swiglu,
+    moe_route and moe_combine of MiMo-V2-Flash's block) and their shared
     headers (the tensor-core tile of q8gemm, q8conv and q8stem, q8gemm's
     wgmma tile, the requantization, the row mapping of u8rmax and
     u8lut32norm, the window mapping of u8maxpool and q8avgpool) call no
     library; the wgmma tile includes the driver's header cuda.h for its
     TMA descriptors only.  The kernels' registry also names the partial
-    instances of q8gemm.cu and q8conv.cu, whose wrappers count their own
-    launches."""
+    instances of q8gemm.cu and q8conv.cu, q8gemm.cu's grouped instance,
+    q8bmm.cu's masked instances and u8lut32norm.cu's u8softmax_masked,
+    whose wrappers count their own launches."""
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["q8avgpool.cu", "q8bmm.cu", "q8conv.cu", "q8dwconv.cu",
+    assert names == ["moe_combine.cu", "moe_route.cu", "q8avgpool.cu",
+                     "q8bmm.cu", "q8conv.cu", "q8dwconv.cu",
                      "q8gavgpool.cu", "q8gemm.cu", "q8requant.cu",
-                     "q8stem.cu", "q8vadd.cu", "u8clamp.cu",
-                     "u8lut32norm.cu", "u8maxpool.cu", "u8rmax.cu"]
+                     "q8rope.cu", "q8stem.cu", "q8swiglu.cu", "q8vadd.cu",
+                     "u8clamp.cu", "u8lut32norm.cu", "u8maxpool.cu",
+                     "u8rmax.cu"]
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == \
         ["device_guard.cuh", "imma_tile.cuh", "pool_tile.cuh",
          "requant.cuh", "u8rows.cuh", "wgmma_tile.cuh"]
@@ -283,7 +289,8 @@ def test_four_kernels_with_no_library_calls():
                             "wgmma_tile.cuh", "cuda.h"}, \
             f"{p.name} includes {includes}"
     assert set(tkernels.KERNELS) == {n[:-3] for n in names} | {
-        "q8gemm_partial", "q8conv_partial"}
+        "q8gemm_partial", "q8conv_partial", "q8gemm_grouped", "q8bmm_masked",
+        "u8softmax_masked"}
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "-fmad=false" in _build.NVCC_FLAGS
 
