@@ -228,7 +228,7 @@ KERNEL_NAMES = ("q8gemm", "q8dwconv", "q8vadd", "q8gavgpool", "q8conv",
                 "u8lut32norm", "u8clamp", "q8gemm_partial", "q8conv_partial",
                 "q8requant", "q8gemm_grouped", "q8bmm_masked",
                 "u8softmax_masked", "q8rope", "q8swiglu", "moe_route",
-                "moe_combine")
+                "moe_combine", "q8attn_masked")
 
 
 def _counts(**nonzero):
@@ -268,13 +268,13 @@ IMPORTED_LAUNCHES = {
 IMPORTED_SERVED = {"mobilenet_v2_tflite": 8}
 # One b1 forward of MiMo-V2-Flash's block (models/mimo_v2_flash.py, seven
 # layers, six of them expert layers): per layer qkv and o on q8gemm, q8rope,
-# the masked scores and context, u8softmax_masked and two adds; layer 0's
-# gate|up and down on q8gemm and q8swiglu; each expert layer's router on
-# q8gemm_partial, moe_route (its two kernels), two grouped launches,
-# q8swiglu and moe_combine.
+# the fused masked attention (scores, softargmax and context in one
+# q8attn_masked launch) and two adds; layer 0's gate|up and down on q8gemm
+# and q8swiglu; each expert layer's router on q8gemm_partial, moe_route
+# (its two kernels), two grouped launches, q8swiglu and moe_combine.
 MIMO_LAUNCHES = _counts(q8gemm=16, q8gemm_partial=6, q8gemm_grouped=12,
-                        q8bmm_masked=14, u8softmax_masked=7, q8rope=7,
-                        q8swiglu=7, moe_route=12, moe_combine=6, q8vadd=14)
+                        q8attn_masked=7, q8rope=7, q8swiglu=7, moe_route=12,
+                        moe_combine=6, q8vadd=14)
 MIMO_KERNELS = tuple(name for name in KERNEL_NAMES if MIMO_LAUNCHES[name])
 # One run of phase 6's lifecycle operators (ops_cases).
 OPS_LAUNCHES = _counts(q8gemm=11, q8dwconv=5, q8vadd=1, q8gavgpool=3,
@@ -329,6 +329,7 @@ SOURCES = {
     "moe_route": ("qnnpack_tpu_torch/kernels/csrc/moe_route.cu", "none"),
     "moe_combine": ("qnnpack_tpu_torch/kernels/csrc/moe_combine.cu",
                     "none"),
+    "q8attn_masked": ("qnnpack_tpu_torch/kernels/csrc/q8bmm.cu", "none"),
 }
 
 
@@ -997,6 +998,67 @@ def check_kernels(torch, err):
     torch.cuda.synchronize()
 
 
+# Phase 2's fused attention rows (check_fused_attention), written to
+# chip_smoke.json.
+MIMO_ATTENTION = []
+
+
+def check_fused_attention(torch, err, tag, q, k, v, rps, lut, window, sinks,
+                          rpc, chunk):
+    """The fused masked attention (q8attn_masked) on views q, k, v of one
+    qkv buffer against its plain version (`chunk` heads at a time) and the
+    three unfused kernels on the card (scores, u8softmax_masked, context),
+    both timed beside its bound: q, k and v read once (K and V once a
+    key/value head), the context written once, and the scores' and the
+    context's products over the mask's pairs."""
+    from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES,
+                                                 q8attn_masked_cuda,
+                                                 q8attn_masked_plain,
+                                                 q8bmm_masked_cuda)
+    from qnnpack_tpu_torch.kernels.vpu_ops import u8softmax_masked_cuda
+
+    b, nh, s, dq = q.shape
+    nkv, dv = k.shape[1], v.shape[-1]
+    group = nh // nkv
+    zp = 128
+    args = (zp, rps, lut, window, sinks, rpc)
+
+    def fused():
+        return q8attn_masked_cuda(q, k, v, *args)
+
+    def three():
+        scores = q8bmm_masked_cuda(q, k, zp, zp, rps, SCORES, window)
+        u8softmax_masked_cuda(scores.view(b * nh, s, s), lut, window, sinks)
+        return q8bmm_masked_cuda(scores, v, 0, zp, rpc, CONTEXT, window)
+
+    def part(h0, h1):
+        kv = slice(h0 // group, h0 // group + 1)
+        return q8attn_masked_plain(q[:, h0:h1], k[:, kv], v[:, kv], zp, rps,
+                                   lut, window,
+                                   None if sinks is None else sinks[h0:h1],
+                                   rpc)
+    got = fused()
+    compare(torch, err, "q8attn_masked", f"{tag}: fused vs plain", got,
+            by_heads(torch, (b, nh, s, dv), part, chunk))
+    compare(torch, err, "q8attn_masked", f"{tag}: fused vs three kernels",
+            got, three())
+    del got
+    torch.cuda.empty_cache()
+    pairs = b * nh * (s * (s + 1) // 2 if not window else
+                      window * (window + 1) // 2 + (s - window) * window)
+    t_bytes = b * s * (nh * dq + nkv * (dq + dv) + nh * dv) / HBM_BYTES_PER_S
+    t_ops = 2 * pairs * (dq + dv) / INT8_OPS_PER_S
+    row = dict(label=tag, fused_ms=time_ms(fused, torch),
+               three_kernels_ms=time_ms(three, torch),
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    MIMO_ATTENTION.append(row)
+    log(f"    q8attn_masked {tag}: {row['fused_ms']:.3f} ms, three kernels "
+        f"{row['three_kernels_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
+    torch.cuda.empty_cache()
+
+
 def check_mimo_kernels(torch, err, cfg, dev):
     """MiMo-V2-Flash's kernels against their plain versions on random
     inputs at the shapes of a b1 forward of the block `cfg`
@@ -1004,7 +1066,8 @@ def check_mimo_kernels(torch, err, cfg, dev):
     versions there too (their int64 products over 8,192 keys would take
     the CPU minutes): q8rope on a full and a window layer's qkv rows; the
     masked scores, u8softmax_masked and the context of two key/value
-    heads' query heads, causal, and banded with sinks; moe_route of every
+    heads' query heads, causal, and banded with sinks, and the fused
+    attention on the same views (check_fused_attention); moe_route of every
     token over the router's experts with tied scores; q8gemm's grouped
     instance for the experts' gate|up and down with segments of 0, 1,
     127, 129 and every row live; q8swiglu on them; and moe_combine."""
@@ -1099,7 +1162,17 @@ def check_mimo_kernels(torch, err, cfg, dev):
                     q8bmm_masked_plain(probs[:, h0:h1],
                                        v[:, h0 // group:h0 // group + 1], 0,
                                        zp, rpc, CONTEXT, window)), chunk))
-        del qkv, rows, q, k, v, scores, probs, ctx
+        del scores, probs, ctx
+        torch.cuda.empty_cache()
+        check_fused_attention(torch, err, tag, q, k, v, rps, lut, window,
+                              sinks, rpc, chunk)
+        # Again on the spread of the block's products (24 steps), where the
+        # rows' probabilities spread rather than saturate.
+        qkv[:, :cols].copy_(torch.randint(100, 157, (s, cols), generator=gen,
+                                          dtype=torch.uint8, device=dev))
+        check_fused_attention(torch, err, f"{tag}, products' spread", q, k,
+                              v, rps, lut, window, sinks, rpc, chunk)
+        del qkv, rows, q, k, v
         torch.cuda.empty_cache()
 
     # The routing: a quarter of the experts tie on the logit of expert 0,
@@ -1984,20 +2057,19 @@ def mimo_calls(torch, params, spec, x, y):
     output would be timed on other data), and `got` is their output on the
     forward's input; `view` keeps what both outputs specify (the keys
     inside the mask, the experts' live rows; the routing's four tensors
-    and live rows as bytes).  The plain masked products and softargmax run
-    four heads at a time.  Bytes and operations are counted as the
-    benchmark's reference counts them (each input read once, K and V once
-    a key/value head, only the mask's pairs), the expert kernels at the
+    and live rows as bytes).  The fused attention (q8attn_masked) is also
+    held to the three unfused kernels on the card (its `witness`); its
+    plain version runs four heads at a time.  Bytes and operations are
+    counted as the benchmark's reference counts them (each input read
+    once, K and V once a key/value head, only the mask's pairs), but for
+    the fused attention, which writes no scores, the expert kernels at the
     rows routed here."""
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.kernels import moe
     from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES,
-                                                 q8bmm_masked_plain,
-                                                 valid_keys)
+                                                 q8attn_masked_plain)
     from qnnpack_tpu_torch.kernels.q8gemm import q8gemm_grouped_plain
-    from qnnpack_tpu_torch.kernels.vpu_ops import (q8rope_plain,
-                                                   q8swiglu_plain,
-                                                   u8softmax_masked_plain)
+    from qnnpack_tpu_torch.kernels.vpu_ops import q8rope_plain, q8swiglu_plain
     from qnnpack_tpu_torch.models.mimo_v2_flash import (ACT_ZP, PROBS_ZP,
                                                         WINDOW)
     cfg = spec["cfg"]
@@ -2065,75 +2137,47 @@ def mimo_calls(torch, params, spec, x, y):
         q = rows[..., :nh * dq].view(b, s, nh, dq).permute(0, 2, 1, 3)
         k = rows[..., nh * dq:cols].view(b, s, nkv, dq).permute(0, 2, 3, 1)
         v = rows[..., cols:].view(b, s, nkv, dv).permute(0, 2, 1, 3)
-        keep = valid_keys(s, window, x.device)
         pr = b * nh * (s * (s + 1) // 2 if not window else
                        window * (window + 1) // 2 + (s - window) * window)
         mask = f"{nh}/{nkv} heads, " + (f"band {window}" if window
                                         else "causal")
-
-        def masked(y):
-            return torch.where(keep, y, 0)
-
-        def scores_part(h0, h1):
-            return q8bmm_masked_plain(q[:, h0:h1], k[:, h0 // group:
-                                                     h0 // group + 1],
-                                      ACT_ZP, ACT_ZP, rp["scores"], SCORES,
-                                      window)
-        yield dict(kernel="q8bmm_masked",
-                   label=f"l{i}.scores [{s}x{dq}]x[{dq}x{s}] {mask}",
-                   run=lambda: K.q8bmm_masked_cuda(
-                       q, k, ACT_ZP, ACT_ZP, rp["scores"], SCORES, window),
-                   plain=lambda: by_heads(torch, (b, nh, s, s), scores_part,
-                                          chunk),
-                   view=masked, library=None,
-                   bytes=t * (nh + nkv) * dq + pr, ops=2 * pr * dq)
-        scores = K.q8bmm_masked_cuda(q, k, ACT_ZP, ACT_ZP, rp["scores"],
-                                     SCORES, window)
         lut, sink = spec["softmax_lut"][kind], p.get("sink")
-        probs = scores.clone()
-        K.u8softmax_masked_cuda(probs.view(b * nh, s, s), lut, window, sink)
-        scratch = scores.clone()
-
-        def softmax_part(h0, h1):
-            return u8softmax_masked_plain(
-                scores[:, h0:h1].reshape(-1, s, s), lut, window,
-                None if sink is None else sink[h0:h1]).view(b, h1 - h0, s,
-                                                            s)
-        yield dict(kernel="u8softmax_masked",
-                   label=f"l{i}.softmax {b * nh}x[{s}x{s}] {mask}"
-                         + (", sinks" if sink is not None else ""),
-                   run=lambda: K.u8softmax_masked_cuda(
-                       scratch.copy_(scores).view(b * nh, s, s), lut, window,
-                       sink),
-                   less=lambda: scratch.copy_(scores),
-                   got=lambda: probs,
-                   plain=lambda: by_heads(torch, (b, nh, s, s),
-                                          softmax_part, chunk),
-                   view=masked, library=None, bytes=2 * pr, ops=0)
-        del scores, scratch
-        torch.cuda.empty_cache()
+        rp_ctx = rp["context_window" if window else "context_full"]
         ctx = torch.empty((b, s, nh * dv), dtype=torch.uint8,
                           device=x.device)
         cview = ctx.view(b, s, nh, dv).permute(0, 2, 1, 3)
-        rp_ctx = rp["context_window" if window else "context_full"]
+        args = (ACT_ZP, rp["scores"], lut, window, sink, rp_ctx)
 
-        def context_part(h0, h1):
-            return q8bmm_masked_plain(probs[:, h0:h1], v[:, h0 // group:
-                                                         h0 // group + 1],
-                                      PROBS_ZP, ACT_ZP, rp_ctx, CONTEXT,
-                                      window)
-        yield dict(kernel="q8bmm_masked",
-                   label=f"l{i}.context [{s}x{s}]x[{s}x{dv}] {mask}",
-                   run=lambda: K.q8bmm_masked_cuda(
-                       probs, v, PROBS_ZP, ACT_ZP, rp_ctx, CONTEXT, window,
-                       out=cview),
+        def attention_part(h0, h1):
+            kv = slice(h0 // group, h0 // group + 1)
+            return q8attn_masked_plain(
+                q[:, h0:h1], k[:, kv], v[:, kv], ACT_ZP, rp["scores"], lut,
+                window, None if sink is None else sink[h0:h1], rp_ctx)
+
+        def three_kernels():
+            # The unfused path on the card: scores, softargmax, context.
+            scores = K.q8bmm_masked_cuda(q, k, ACT_ZP, ACT_ZP, rp["scores"],
+                                         SCORES, window)
+            K.u8softmax_masked_cuda(scores.view(b * nh, s, s), lut, window,
+                                    sink)
+            return K.q8bmm_masked_cuda(scores, v, PROBS_ZP, ACT_ZP, rp_ctx,
+                                       CONTEXT, window)
+        # The bound counts the work alone: q, k and v read once (K and V
+        # once a key/value head), the context written once, and the scores'
+        # and the context's products over the mask's pairs.
+        yield dict(kernel="q8attn_masked",
+                   label=f"l{i}.attention [{s}x{dq}]x[{dq}x{s}]x[{s}x{dv}] "
+                         f"{mask}" + (", sinks" if sink is not None else ""),
+                   run=lambda: K.q8attn_masked_cuda(q, k, v, *args,
+                                                    out=cview),
                    plain=lambda: by_heads(torch, (b, nh, s, dv),
-                                          context_part, chunk),
-                   library=None, bytes=pr + t * nkv * dv + t * nh * dv,
-                   ops=2 * pr * dv)
-        K.q8bmm_masked_cuda(probs, v, PROBS_ZP, ACT_ZP, rp_ctx, CONTEXT,
-                            window, out=cview)
-        del probs, rotated, rows, q, k, v
+                                          attention_part, chunk),
+                   witness=("the three unfused kernels", three_kernels),
+                   library=None,
+                   bytes=t * (nh + nkv) * dq + t * nkv * dv + t * nh * dv,
+                   ops=2 * pr * (dq + dv))
+        K.q8attn_masked_cuda(q, k, v, *args, out=cview)
+        del rotated, rows, q, k, v
         torch.cuda.empty_cache()
         rec = gemm(f"l{i}.o", ctx.view(t, nh * dv), p["o"], rp["o"])
         yield rec
@@ -2419,6 +2463,12 @@ def time_calls(torch, calls, err, plain_repeats):
         compare(torch, err, call["kernel"], call["label"],
                 view((call.get("got") or call["run"])()),
                 view(call["plain"]()), quiet=True)
+        if "witness" in call:
+            # A second witness: other kernels that compute the same bytes.
+            name, fn = call["witness"]
+            compare(torch, err, call["kernel"], f"{call['label']} == {name}",
+                    view((call.get("got") or call["run"])()), view(fn()),
+                    quiet=True)
         torch.cuda.empty_cache()
         row = dict(kernel=call["kernel"], label=call["label"],
                    bytes=call["bytes"], ops=call["ops"],
@@ -2434,7 +2484,7 @@ def time_calls(torch, calls, err, plain_repeats):
         if call.get("plan") is not None:
             row["plan"] = call["plan"]
         if call["kernel"] in ("q8gemm", "q8conv", "q8stem", "q8gemm_grouped",
-                              "q8bmm_masked"):
+                              "q8bmm_masked", "q8attn_masked"):
             bound_ms = max(row["bytes"] / HBM_BYTES_PER_S,
                            row["ops"] / INT8_OPS_PER_S) * 1e3
             row.update(tops=row["ops"] / (row["ms"] * 1e-3) / 1e12,
@@ -3927,6 +3977,10 @@ def main() -> int:
             s = summarize(b128, name)
             if not s["shapes"]:
                 s = summarize(per_shape["mimo_v2_flash b1"], name)
+            if not s["shapes"]:
+                # Checked in phase 2 but on no timed path of this run.
+                s = dict(s, ms=None, plain_ms=None, bound_ms=None,
+                         bound_by=None)
         source, replaces = SOURCES[name]
         kernels_line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -3947,7 +4001,8 @@ def main() -> int:
         deconv_ops=deconv_rows,
         launches_per_forward=launches,
         served_batches=served_batches, served_p50_ms=latency,
-        kernels=kernels_line, per_shape=per_shape), indent=1))
+        kernels=kernels_line, per_shape=per_shape,
+        mimo_attention=MIMO_ATTENTION), indent=1))
     log("    per-shape times: chiprun_out/chip_smoke.json "
         "(kernel ms in the line below are summed over one batch-128 "
         "forward of each path; u8clamp's are the lifecycle phase's, and "

@@ -7,7 +7,9 @@ package).  q8gemm_partial and q8conv_partial are instances of q8gemm.cu
 and q8conv.cu with wrappers and launch counts of their own, as are
 q8gemm_grouped (q8gemm.cu's grouped wgmma instance, an expert layer's
 GEMMs), q8bmm_masked (q8bmm.cu's causal and banded instances with
-grouped-query attention) and u8softmax_masked (in u8lut32norm.cu).
+grouped-query attention), q8attn_masked (q8bmm.cu's fused masked
+attention: scores, softargmax and context in one launch, MiMo-V2-Flash's
+path) and u8softmax_masked (in u8lut32norm.cu).
 
 Each module holds a kernel's wrapper (`*_cuda`, which launches the kernel
 for CUDA tensors and counts launches in its `launches` attribute) and its
@@ -18,7 +20,8 @@ The CUDA sources are in csrc/; _build.py compiles them at first launch.
 from .moe import moe_combine_cuda, moe_route_cuda
 from .pool import (q8avgpool_cuda, q8avgpool_plain, q8gavgpool_cuda,
                    q8gavgpool_plain, u8maxpool_cuda, u8maxpool_plain)
-from .q8bmm import q8bmm_cuda, q8bmm_masked_cuda, q8bmm_plain
+from .q8bmm import (q8attn_masked_cuda, q8bmm_cuda, q8bmm_masked_cuda,
+                    q8bmm_plain)
 from .q8conv import (q8conv_cuda, q8conv_partial_cuda, q8conv_partial_plain,
                      q8conv_plain)
 from .q8dwconv import q8dwconv_cuda, q8dwconv_plain
@@ -50,6 +53,7 @@ KERNELS = {
     "q8gemm_grouped": q8gemm_grouped_cuda,
     "q8bmm_masked": q8bmm_masked_cuda,
     "u8softmax_masked": u8softmax_masked_cuda,
+    "q8attn_masked": q8attn_masked_cuda,
     "q8rope": q8rope_cuda,
     "q8swiglu": q8swiglu_cuda,
     "moe_route": moe_route_cuda,

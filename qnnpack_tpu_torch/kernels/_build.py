@@ -61,6 +61,8 @@ SIGNATURES = {
     "qnn_q8bmm_masked": [_I, _P, _P, _P, _I64, _I64, _I, _I, _I, _I]
                         + [_I64] * 6 + [_I] + [_I64] * 3 + [_I] * 4
                         + [_I] * 6 + [_F, _P],
+    "qnn_q8attn_masked": [_I] + [_P] * 6 + [_I] * 6 + [_I64] * 12
+                         + [_I, _I, _F] + [_I] * 3 + [_I] * 6 + [_F, _P],
     "qnn_u8softmax_masked": [_I, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
     "qnn_q8gemm_grouped": [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_I] * 6
                           + [_F, _P],

@@ -11,9 +11,10 @@ token, chosen by sigmoid scores with a correction bias (noaux_tc).
 Per layer on x [B, S, H], every tensor uint8 with one scale:
   qkv  = fc(x)                          q, k, v as views, no copy
   q, k = rope(q, k)                     dims 0-63 of each head, in place
-  p    = masked_softargmax(q k^T)       causal, or the 128-key band with
-                                        the head's sink in max and sum
-  ctx  = p v                            only the valid keys of each row
+  ctx  = masked_softargmax(q k^T) v     one fused kernel: causal, or the
+                                        128-key band with the head's sink
+                                        in max and sum; only the valid
+                                        keys of each row
   x    = add(fc_o(ctx), x)
   x    = add(down(swiglu(gate_up(x))), x)            layer 0
   x    = add(combine(experts(dispatch(route(x)))), x)  layers 1-6
@@ -22,9 +23,11 @@ reference/mimo_v2_flash_s8192_qnnpack.py byte for byte.
 
 Every op runs on a kernel of this package on the GPU: q8gemm (the
 projections, the dense FFN, the router's int32 logits through its partial
-instance), q8rope, q8bmm's masked instance (the scores and the context,
-grouped-query attention read in place: 16 or 8 query heads share a
-key/value head with no copy), u8softmax_masked, q8gemm's grouped instance
+instance), q8rope, q8bmm.cu's fused masked attention (kernels/q8bmm.py
+q8attn_masked_cuda: the scores, the softargmax and the context in one
+launch, each score kept in registers, grouped-query attention read in
+place: 16 or 8 query heads share a key/value head with no copy; no
+[B, H, S, S] tensor is made), q8gemm's grouped instance
 (the held experts' gate|up and down in one launch each), q8swiglu,
 moe_route and moe_combine (kernels/moe.py), q8vadd.  The routing is read
 on the device only, so the whole forward is one CUDA graph
@@ -34,8 +37,11 @@ This device holds experts `first_expert` .. + `experts_held` - 1 of
 `router_experts` (expert parallelism): the router scores all of them and
 the layer adds the part of each token's result its experts give.  The
 spans attn.rope, attn.masked, moe.route, moe.experts and moe.combine
-enclose those calls (utils/profiling.py); the device counter
-moe.routed_rows holds the held experts' rows of the last forward.
+enclose those calls (utils/profiling.py); the counters attn.masked and
+attn.fused count the masked-attention calls and those that took the fused
+kernel (at an eager call and a capture, never at a replay); the device
+counter moe.routed_rows holds the held experts' rows of the last
+forward.
 """
 
 from __future__ import annotations
@@ -48,10 +54,9 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.moe import moe_combine_cuda, moe_route_cuda
-from ..kernels.q8bmm import CONTEXT, SCORES, q8bmm_masked_cuda
+from ..kernels.q8bmm import q8attn_masked_cuda
 from ..kernels.q8gemm import q8gemm_grouped_cuda, q8gemm_partial_cuda
-from ..kernels.vpu_ops import (q8rope_cuda, q8swiglu_cuda, q8vadd_cuda,
-                               u8softmax_masked_cuda)
+from ..kernels.vpu_ops import q8rope_cuda, q8swiglu_cuda, q8vadd_cuda
 from ..nn.elementwise import build_softargmax_lut, lut32_tensor
 from ..nn.gemm import q8gemm
 from ..nn.packing import pack_gemm_weights, pack_grouped_weights
@@ -336,18 +341,18 @@ def attention(p: dict, spec: dict, layer: int, x2, b: int):
         0, 2, 3, 1)
     v = rows[..., (nh + nkv) * dq:].view(b, s, nkv, dv).permute(0, 2, 1, 3)
     with profiling.span("attn.masked"):
-        scores = q8bmm_masked_cuda(q, k, ACT_ZP, ACT_ZP, spec["rp"]["scores"],
-                                   SCORES, window)         # [B, nh, S, S]
-        u8softmax_masked_cuda(scores.view(b * nh, s, s),
-                              spec["softmax_lut"][kind], window,
-                              p.get("sink"))
         ctx = torch.empty((b, s, nh * dv), dtype=torch.uint8,
                           device=x2.device)
-        q8bmm_masked_cuda(
-            scores, v, PROBS_ZP, ACT_ZP,
+        q8attn_masked_cuda(
+            q, k, v, ACT_ZP, spec["rp"]["scores"], spec["softmax_lut"][kind],
+            window, p.get("sink"),
             spec["rp"]["context_window" if kind == WINDOW else
-                       "context_full"], CONTEXT, window,
+                       "context_full"],
             out=ctx.view(b, s, nh, dv).permute(0, 2, 1, 3))
+    # Counted at the eager warm-up and the capture, never at a replay.
+    profiling.count("attn.masked")
+    if ctx.is_cuda:
+        profiling.count("attn.fused")
     return q8gemm(ctx.view(b * s, nh * dv), p["o"], spec["rp"]["o"])
 
 

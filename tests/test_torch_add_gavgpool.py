@@ -186,7 +186,8 @@ def test_cpu_wrappers_count_nothing():
         "q8bmm": 0, "u8rmax": 0, "u8lut32norm": 0, "u8clamp": 0,
         "q8gemm_partial": 0, "q8conv_partial": 0, "q8requant": 0,
         "q8gemm_grouped": 0, "q8bmm_masked": 0, "u8softmax_masked": 0,
-        "q8rope": 0, "q8swiglu": 0, "moe_route": 0, "moe_combine": 0}
+        "q8rope": 0, "q8swiglu": 0, "moe_route": 0, "moe_combine": 0,
+        "q8attn_masked": 0}
 
 
 # ---------------------------------------- q8gavgpool's instance and mapping

@@ -20,7 +20,10 @@ import torch
 import reference_mimo as ref
 from qnnpack_tpu_torch import kernels as tk
 from qnnpack_tpu_torch.kernels import moe as tmoe
-from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES,
+from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES, attn_norm,
+                                             attn_row_div,
+                                             q8attn_masked_cuda,
+                                             q8attn_masked_plain,
                                              q8bmm_masked_cuda,
                                              q8bmm_masked_plain)
 from qnnpack_tpu_torch.kernels.q8gemm import (q8gemm_grouped_cuda,
@@ -39,18 +42,22 @@ from qnnpack_tpu_torch.utils import profiling
 ZP = 128
 
 
-def small_config(held: int = 4, rank: int = 0, seq: int = 64) -> dict:
+def small_config(held: int = 4, rank: int = 0, seq: int = 64,
+                 heads: tuple = (48, 32, 8)) -> dict:
     """The block at test sizes, in the configuration's keys: hidden 256, 8
-    query heads over 2 (full) or 4 (window) key/value heads, qk 48, v 32,
-    window 8, 16 router experts of which `held` are held at `rank`, layers
-    full+dense, window, full; the scales the port derives from these
-    widths (mimo.quantization_scales)."""
+    query heads over 2 (full) or 4 (window) key/value heads, qk 48 and v
+    32 (or `heads`: qk, v, window), window 8, 16 router experts of which
+    `held` are held at `rank`, layers full+dense, window, full; the scales
+    the port derives from these widths (mimo.quantization_scales)."""
     cfg = copy.deepcopy(ref.published())
-    h, nh, dq, dv, w, f, ew = 256, 8, 48, 32, 8, 384, 128
+    h, nh, f, ew = 256, 8, 384, 128
+    dq, dv, w = heads
     cfg.update(hidden_size=h, num_attention_heads=nh,
                swa_num_attention_heads=nh, num_key_value_heads=2,
                swa_num_key_value_heads=4, head_dim=dq, swa_head_dim=dq,
-               v_head_dim=dv, swa_v_head_dim=dv, partial_rotary_factor=0.34,
+               v_head_dim=dv, swa_v_head_dim=dv,
+               partial_rotary_factor=0.34 if dq == 48 else
+               cfg["partial_rotary_factor"],
                sliding_window=w, intermediate_size=f,
                moe_intermediate_size=ew, router_experts=16,
                n_routed_experts=held, num_experts_per_tok=8, seq_len=seq,
@@ -204,6 +211,165 @@ def test_masked_bmm_with_gqa_equals_its_plain_form(window, heads, kv):
                                           window), want)
 
 
+def _attention_inputs(gen, b, s, heads, kv, dq=192, dv=128, case=None):
+    """q, k, v views of one qkv buffer [B, S, width] as the block makes
+    them (k K-major), the sinks and the buffer; `case` shapes the rows:
+    "equal" makes every score of a row equal, "sink_max" puts the sink
+    above every score."""
+    width = (heads + kv) * dq + kv * dv
+    # About the spread of the block's products (24 steps), so that the
+    # scores spread over the table rather than saturate.
+    qkv = torch.randint(100, 157, (b, s, width), generator=gen,
+                        dtype=torch.uint8)
+    if case == "equal":
+        qkv[..., heads * dq:(heads + kv) * dq] = 140
+    q = qkv[..., :heads * dq].view(b, s, heads, dq).permute(0, 2, 1, 3)
+    k = qkv[..., heads * dq:(heads + kv) * dq].view(b, s, kv, dq).permute(
+        0, 2, 3, 1)
+    v = qkv[..., (heads + kv) * dq:].view(b, s, kv, dv).permute(0, 2, 1, 3)
+    sinks = torch.randint(96, 192, (heads,), generator=gen,
+                          dtype=torch.uint8)
+    if case == "sink_max":
+        sinks[:] = 255
+    return q, k, v, sinks, qkv
+
+
+def _three_steps(q, k, v, rps, lut, window, sinks, rpc):
+    """The unfused path's plain versions: scores, softargmax, context."""
+    b, h, s, _ = q.shape
+    scores = q8bmm_masked_plain(q, k, ZP, ZP, rps, SCORES, window)
+    probs = u8softmax_masked_plain(scores.reshape(b * h, s, s), lut, window,
+                                   sinks).view(b, h, s, s)
+    return q8bmm_masked_plain(probs, v, 0, ZP, rpc, CONTEXT, window)
+
+
+def _reference_attention(q, k, v, scores_scale, table, window, sinks,
+                         ctx_scale):
+    """tests/reference_mimo.py's arithmetic, head by head."""
+    b, h, s, _ = q.shape
+    group = h // k.shape[1]
+    keep = ref.mask(s, window, "cpu")
+    out = []
+    for i in range(b):
+        rows = []
+        for hh in range(h):
+            sc = ref.qmath.requant_fp32(ref.qmath.bmm_acc(
+                q[i, hh], k[i, hh // group], ZP, ZP), scores_scale, ZP)
+            pr = ref.masked_softargmax(
+                sc, keep, table, None if sinks is None else sinks[hh])
+            rows.append(ref.qmath.requant_fp32(ref.qmath.bmm_acc(
+                pr, v[i, hh // group], 0, ZP), ctx_scale, ZP))
+        out.append(torch.stack(rows))
+    return torch.stack(out).to(torch.uint8)
+
+
+@pytest.mark.parametrize("s", [1, 63, 200, 257])
+@pytest.mark.parametrize("heads,kv", [(16, 1), (16, 2)])
+@pytest.mark.parametrize("window", [0, 128])
+def test_fused_attention_equals_three_steps_and_reference(window, heads, kv,
+                                                          s):
+    """The fused op's plain version (the kernel's sweeps: the rows' max
+    from the accumulators, the table's sum, the reciprocal divide) against
+    the unfused plain path and the reference, byte for byte: causal, and
+    the 128-key band with the heads' sinks; GQA 16:1 and 8:1; qk 192, v
+    128; sequences that are no multiple of a tile."""
+    gen = torch.Generator().manual_seed(s + 3 * heads * kv + window)
+    q, k, v, sinks, qkv = _attention_inputs(gen, 2, s, heads, kv)
+    sinks = sinks if window else None
+    channels = window + 1 if window else s
+    lut = lut32_tensor(build_softargmax_lut(0.06, channels))
+    rps = make_requant_params("fp32", 0.003007, ZP)
+    rpc = make_requant_params("fp32", 0.0221 if window else 0.0884, ZP)
+    got = q8attn_masked_cuda(q, k, v, ZP, rps, lut, window, sinks, rpc)
+    assert got.shape == (2, heads, s, 128) and got.is_contiguous()
+    assert torch.equal(got, _three_steps(q, k, v, rps, lut, window, sinks,
+                                         rpc))
+    table = ref.qmath.softargmax_table(0.06, channels)
+    assert torch.equal(got, _reference_attention(
+        q, k, v, 0.003007, table, window, sinks, 0.0221 if window else
+        0.0884))
+    # Through out=, as the block writes its [B, S, H dv] buffer.
+    ctx = torch.zeros((2, s, heads * 128), dtype=torch.uint8)
+    q8attn_masked_cuda(q, k, v, ZP, rps, lut, window, sinks, rpc,
+                       out=ctx.view(2, s, heads, 128).permute(0, 2, 1, 3))
+    assert torch.equal(ctx.view(2, s, heads, 128).permute(0, 2, 1, 3), got)
+
+
+@pytest.mark.parametrize("case", ["sink_max", "equal", "saturate"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_fused_attention_edge_rows(case, window):
+    """Rows whose max is the sink, rows of all-equal scores, and scales
+    that saturate the scores and the context: the fused op's plain version
+    against the unfused plain path."""
+    gen = torch.Generator().manual_seed(len(case) + window)
+    q, k, v, sinks, qkv = _attention_inputs(gen, 1, 70, 8, 2, case=case)
+    if case != "sink_max" and not window:
+        sinks = None
+    channels = window + 1 if window else 70
+    lut = lut32_tensor(build_softargmax_lut(0.06, channels))
+    scale = 0.5 if case == "saturate" else 0.003007
+    rps = make_requant_params("fp32", scale, ZP)
+    rpc = make_requant_params("fp32", 2.0 if case == "saturate" else 0.0884,
+                              ZP)
+    got = q8attn_masked_cuda(q, k, v, ZP, rps, lut, window, sinks, rpc)
+    assert torch.equal(got, _three_steps(q, k, v, rps, lut, window, sinks,
+                                         rpc))
+    scores = q8bmm_masked_plain(q, k, ZP, ZP, rps, SCORES, window)
+    keep = ref.mask(70, window, "cpu")
+    valid = scores[:, :, keep]
+    if case == "saturate":
+        assert (valid == 0).float().mean() > 0.2
+        assert (valid == 255).float().mean() > 0.2
+        assert ((got == 0) | (got == 255)).float().mean() > 0.5
+    elif case == "equal":
+        rows = torch.where(keep, scores.to(torch.int64), -1)
+        assert torch.equal(rows.amax(-1), torch.where(
+            keep, scores.to(torch.int64), 999).amin(-1))
+    else:
+        assert int(valid.max()) < 255
+
+
+@pytest.mark.parametrize("s", [0, 1, 2, 3, 255, 256, 257, 2**16, 2**24 + 3,
+                               2**31 - 1, 2**31, 2**31 + 1, 2**32 - 2,
+                               2**32 - 1])
+def test_fused_divide_equals_the_integer_divide(s):
+    """The kernel's divide of a row (a reciprocal m = floor(2^32 / s), one
+    correction; half = 255 for a zero sum) equals min((256 e + s / 2)
+    mod 2^32 // s, 255), and 255 for s = 0, at the edges of e and s."""
+    gen = torch.Generator().manual_seed(s % 1000)
+    e = torch.cat([torch.tensor([0, 1, 255, 256, 2**24 - 1, 2**24, 2**24 + 1,
+                                 2**31 - 1, 2**31, 2**32 - 1, s, s // 2,
+                                 s // 256]),
+                   torch.randint(0, 2**32, (2000,), generator=gen,
+                                 dtype=torch.int64)]) & 0xFFFFFFFF
+    total = torch.full_like(e, s)
+    got = attn_norm(e, attn_row_div(total))
+    num = (e * 256 + (total >> 1)) & 0xFFFFFFFF
+    want = torch.full_like(e, 255) if s == 0 else (num // s).clamp(max=255)
+    assert torch.equal(got, want)
+
+
+def test_fused_attention_refuses_what_it_does_not_take():
+    gen = torch.Generator().manual_seed(9)
+    q, k, v, sinks, qkv = _attention_inputs(gen, 1, 16, 4, 2, dq=32, dv=32)
+    lut = lut32_tensor(build_softargmax_lut(0.06, 16))
+    rp = make_requant_params("fp32", 0.003, ZP)
+    with pytest.raises(ValueError, match="window"):
+        q8attn_masked_cuda(q, k.transpose(2, 3), v, ZP, rp, lut, 0, None, rp)
+    with pytest.raises(ValueError, match="sinks"):
+        q8attn_masked_cuda(q, k, v, ZP, rp, lut, 8, sinks[:3], rp)
+    with pytest.raises(ValueError, match="out"):
+        q8attn_masked_cuda(q, k, v, ZP, rp, lut, 0, None, rp,
+                           out=torch.empty((1, 4, 16, 16),
+                                           dtype=torch.uint8))
+    # Any zero point and head sizes on the CPU: the unfused path's bytes.
+    got = q8attn_masked_plain(q, k, v, 100, rp, lut, 0, None, rp)
+    scores = q8bmm_masked_plain(q, k, 100, 100, rp, SCORES, 0)
+    probs = u8softmax_masked_plain(scores.reshape(4, 16, 16), lut, 0)
+    assert torch.equal(got, q8bmm_masked_plain(probs.view(1, 4, 16, 16), v,
+                                               0, 100, rp, CONTEXT, 0))
+
+
 def test_route_equals_its_plain_form_with_ties():
     """Ties in sigma + c fall to the larger r, then to the lower expert:
     eight experts share every score, and four share r too."""
@@ -350,6 +516,9 @@ def test_spans_and_device_counter():
     assert got["moe.routed_rows"] == int(routed.sum()) > 0
     assert got["moe.routed_rows.l1"] == int(routed[1].sum())
     assert "moe.routed_rows.l0" not in got
+    # Every layer's masked attention; on the CPU none took the kernel.
+    assert got["attn.masked"] == len(mc.pattern)
+    assert "attn.fused" not in got
     # Counted only while a graph is captured: none on the CPU.
     assert "moe.grid_rows" not in got and "moe.grouped_launches" not in got
     profiling.reset()
@@ -441,6 +610,88 @@ def test_card_attention_kernels_equal_their_plain_forms():
                                   CONTEXT, window)
         assert torch.equal(ctx.view(b, s, nh, dv).permute(0, 2, 1, 3).cpu(),
                            want)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("s,heads,kv,window", [
+    (1024, 64, 4, 0), (1024, 64, 8, 128), (272, 32, 2, 0), (272, 16, 2, 128),
+    (200, 32, 2, 0), (200, 16, 2, 128), (272, 8, 2, 0), (200, 12, 3, 128),
+    (257, 4, 1, 0), (257, 4, 1, 128)])
+def test_card_fused_attention_equals_the_three_kernels(s, heads, kv, window):
+    """The fused kernel against its plain version and, where the sequence
+    is a multiple of 16 (u8softmax_masked's rows), the three unfused
+    kernels (scores, u8softmax_masked, context) on the card: GQA 16:1 and
+    8:1 at the block's head sizes, causal and banded with sinks, at
+    sequences that are no multiple of a tile, and 4:1; once on uniform
+    bytes (rows that saturate), once on the products' spread.  Two query
+    heads a key/value head are refused (a block takes four)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(s + heads + window)
+    for spread in (False, True):
+        q, k, v, sinks, qkv = _attention_inputs(gen, 2, s, heads, kv)
+        if not spread:
+            for t in (q, k):
+                t.copy_(torch.randint(0, 256, t.shape, generator=gen,
+                                      dtype=torch.uint8))
+        sinks = sinks if window else None
+        lut = lut32_tensor(build_softargmax_lut(0.06, window + 1 if window
+                                                else s))
+        rps = make_requant_params("fp32", 0.003007, ZP)
+        rpc = make_requant_params("fp32", 0.0221 if window else 0.0884, ZP)
+        want = q8attn_masked_plain(q, k, v, ZP, rps, lut, window, sinks, rpc)
+        qc = qkv.to(dev)
+        width = qc.shape[-1]
+        qd = qc[..., :heads * 192].view(2, s, heads, 192).permute(0, 2, 1, 3)
+        kd = qc[..., heads * 192:(heads + kv) * 192].view(
+            2, s, kv, 192).permute(0, 2, 3, 1)
+        vd = qc[..., (heads + kv) * 192:width].view(2, s, kv, 128).permute(
+            0, 2, 1, 3)
+        lutd, sinksd = lut.to(dev), None if sinks is None else sinks.to(dev)
+        ctx = torch.zeros((2, s, heads * 128), dtype=torch.uint8, device=dev)
+        out = ctx.view(2, s, heads, 128).permute(0, 2, 1, 3)
+        tk.reset_launch_counts()
+        q8attn_masked_cuda(qd, kd, vd, ZP, rps, lutd, window, sinksd, rpc,
+                           out=out)
+        assert tk.launch_counts()["q8attn_masked"] == 1
+        assert torch.equal(out.cpu(), want)
+        if s % 16:
+            continue
+        scores = q8bmm_masked_cuda(qd, kd, ZP, ZP, rps, SCORES, window)
+        u8softmax_masked_cuda(scores.view(2 * heads, s, s), lutd, window,
+                              sinksd)
+        three = q8bmm_masked_cuda(scores, vd, 0, ZP, rpc, CONTEXT, window)
+        assert torch.equal(out, three)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        q8attn_masked_cuda(qd[:, :2], kd[:, :1], vd[:, :1], ZP, rps, lutd,
+                           window, None if sinksd is None else sinksd[:2],
+                           rpc)
+
+
+@pytest.mark.card
+def test_card_forward_equals_the_cpu_forward():
+    """A b1 forward of the block at the published head sizes (qk 192, v
+    128, window 128; 8 query heads over 2 key/value heads, since the
+    kernel takes 4 or more a key/value head) on the card, every attention
+    on the fused kernel, against the port's CPU forward and the
+    reference."""
+    dev = _card()
+    cfg = small_config(seq=320, heads=(192, 128, 128))
+    cfg["swa_num_key_value_heads"] = 2
+    raw, x, mc = _setup(cfg, batch=1)
+    want = ref.forward(cfg, raw, x)
+    y_cpu, _, _ = _port(cfg, raw, mc, x)
+    assert torch.equal(y_cpu, want)
+    spec = mimo.build_spec(mc, dev)
+    params = mimo.pack_layers(raw, mc, dev)
+    tk.reset_launch_counts()
+    profiling.reset()
+    y = mimo.mimo_forward(params, spec, x.to(dev))
+    counts = tk.launch_counts()
+    assert counts["q8attn_masked"] == len(mc.pattern)
+    assert counts["q8bmm_masked"] == counts["u8softmax_masked"] == 0
+    got = profiling.counters()
+    assert got["attn.masked"] == got["attn.fused"] == len(mc.pattern)
+    assert torch.equal(y.cpu(), want)
 
 
 @pytest.mark.card

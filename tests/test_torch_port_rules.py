@@ -217,7 +217,8 @@ def test_cpu_forward_launches_no_kernel():
         "q8bmm": 0, "u8rmax": 0, "u8lut32norm": 0, "u8clamp": 0,
         "q8gemm_partial": 0, "q8conv_partial": 0, "q8requant": 0,
         "q8gemm_grouped": 0, "q8bmm_masked": 0, "u8softmax_masked": 0,
-        "q8rope": 0, "q8swiglu": 0, "moe_route": 0, "moe_combine": 0}
+        "q8rope": 0, "q8swiglu": 0, "moe_route": 0, "moe_combine": 0,
+        "q8attn_masked": 0}
 
 
 def test_cpu_resnet18_forward_launches_no_kernel():
@@ -266,8 +267,9 @@ def test_four_kernels_with_no_library_calls():
     library; the wgmma tile includes the driver's header cuda.h for its
     TMA descriptors only.  The kernels' registry also names the partial
     instances of q8gemm.cu and q8conv.cu, q8gemm.cu's grouped instance,
-    q8bmm.cu's masked instances and u8lut32norm.cu's u8softmax_masked,
-    whose wrappers count their own launches."""
+    q8bmm.cu's masked instances and its fused masked attention, and
+    u8lut32norm.cu's u8softmax_masked, whose wrappers count their own
+    launches."""
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert names == ["moe_combine.cu", "moe_route.cu", "q8avgpool.cu",
                      "q8bmm.cu", "q8conv.cu", "q8dwconv.cu",
@@ -290,7 +292,7 @@ def test_four_kernels_with_no_library_calls():
             f"{p.name} includes {includes}"
     assert set(tkernels.KERNELS) == {n[:-3] for n in names} | {
         "q8gemm_partial", "q8conv_partial", "q8gemm_grouped", "q8bmm_masked",
-        "u8softmax_masked"}
+        "u8softmax_masked", "q8attn_masked"}
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "-fmad=false" in _build.NVCC_FLAGS
 
