@@ -15,7 +15,7 @@ squeezenet_v11_int8.tflite) through qnnpack_tpu_torch.io.import_tflite
 and the graph runtime.  Phases, each of which raises on any failure:
 
   1. print the card (nvidia-smi name and power limit) and versions, build
-     the seventeen CUDA kernel sources from qnnpack_tpu_torch/kernels/csrc/;
+     the eighteen CUDA kernel sources from qnnpack_tpu_torch/kernels/csrc/;
   2. hold every kernel against its plain PyTorch version, run on CPU copies
      of the same inputs, at the main paths' shapes plus kzp != 128, q31,
      precise, gemmlowp, per-channel, ragged-channel, odd-size, grouped
@@ -219,20 +219,16 @@ from pathlib import Path
 
 import numpy as np
 
+from qnnpack_tpu_torch.kernels import KERNELS
+
 # The card's data-sheet peaks, from the port's tuning table
 # (qnnpack_tpu_torch/config.py); main() sets them through card_peaks().
 HBM_BYTES_PER_S = None
 INT8_OPS_PER_S = None
-KERNEL_NAMES = ("q8gemm", "q8dwconv", "q8vadd", "q8gavgpool", "q8conv",
-                "q8stem", "u8maxpool", "q8avgpool", "q8bmm", "u8rmax",
-                "u8lut32norm", "u8clamp", "q8gemm_partial", "q8conv_partial",
-                "q8requant", "q8gemm_grouped", "q8bmm_masked",
-                "u8softmax_masked", "q8rope", "q8swiglu", "moe_route",
-                "moe_combine", "q8attn_masked")
 
 
 def _counts(**nonzero):
-    return {name: nonzero.get(name, 0) for name in KERNEL_NAMES}
+    return {name: nonzero.get(name, 0) for name in KERNELS}
 
 
 EXPECTED_LAUNCHES = {
@@ -275,7 +271,7 @@ IMPORTED_SERVED = {"mobilenet_v2_tflite": 8}
 MIMO_LAUNCHES = _counts(q8gemm=16, q8gemm_partial=6, q8gemm_grouped=12,
                         q8attn_masked=7, q8rope=7, q8swiglu=7, moe_route=12,
                         moe_combine=6, q8vadd=14)
-MIMO_KERNELS = tuple(name for name in KERNEL_NAMES if MIMO_LAUNCHES[name])
+MIMO_KERNELS = tuple(name for name in KERNELS if MIMO_LAUNCHES[name])
 # One run of phase 6's lifecycle operators (ops_cases).
 OPS_LAUNCHES = _counts(q8gemm=11, q8dwconv=5, q8vadd=1, q8gavgpool=3,
                        q8conv=32, q8stem=2, u8maxpool=2, q8avgpool=2,
@@ -321,15 +317,13 @@ SOURCES = {
                   "qnnpack_tpu/parallel/mesh.py:160"),
     # MiMo-V2-Flash's block has no counterpart in the JAX package.
     "q8gemm_grouped": ("qnnpack_tpu_torch/kernels/csrc/q8gemm.cu", "none"),
-    "q8bmm_masked": ("qnnpack_tpu_torch/kernels/csrc/q8bmm.cu", "none"),
-    "u8softmax_masked": ("qnnpack_tpu_torch/kernels/csrc/u8lut32norm.cu",
-                         "none"),
     "q8rope": ("qnnpack_tpu_torch/kernels/csrc/q8rope.cu", "none"),
     "q8swiglu": ("qnnpack_tpu_torch/kernels/csrc/q8swiglu.cu", "none"),
     "moe_route": ("qnnpack_tpu_torch/kernels/csrc/moe_route.cu", "none"),
     "moe_combine": ("qnnpack_tpu_torch/kernels/csrc/moe_combine.cu",
                     "none"),
-    "q8attn_masked": ("qnnpack_tpu_torch/kernels/csrc/q8bmm.cu", "none"),
+    "q8attn_masked": ("qnnpack_tpu_torch/kernels/csrc/q8attn_masked.cu",
+                      "none"),
 }
 
 
@@ -1006,16 +1000,12 @@ MIMO_ATTENTION = []
 def check_fused_attention(torch, err, tag, q, k, v, rps, lut, window, sinks,
                           rpc, chunk):
     """The fused masked attention (q8attn_masked) on views q, k, v of one
-    qkv buffer against its plain version (`chunk` heads at a time) and the
-    three unfused kernels on the card (scores, u8softmax_masked, context),
-    both timed beside its bound: q, k and v read once (K and V once a
-    key/value head), the context written once, and the scores' and the
-    context's products over the mask's pairs."""
-    from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES,
-                                                 q8attn_masked_cuda,
-                                                 q8attn_masked_plain,
-                                                 q8bmm_masked_cuda)
-    from qnnpack_tpu_torch.kernels.vpu_ops import u8softmax_masked_cuda
+    qkv buffer against its plain version (`chunk` heads at a time), timed
+    beside its bound: q, k and v read once (K and V once a key/value
+    head), the context written once, and the scores' and the context's
+    products over the mask's pairs."""
+    from qnnpack_tpu_torch.kernels.q8bmm import (q8attn_masked_cuda,
+                                                 q8attn_masked_plain)
 
     b, nh, s, dq = q.shape
     nkv, dv = k.shape[1], v.shape[-1]
@@ -1026,11 +1016,6 @@ def check_fused_attention(torch, err, tag, q, k, v, rps, lut, window, sinks,
     def fused():
         return q8attn_masked_cuda(q, k, v, *args)
 
-    def three():
-        scores = q8bmm_masked_cuda(q, k, zp, zp, rps, SCORES, window)
-        u8softmax_masked_cuda(scores.view(b * nh, s, s), lut, window, sinks)
-        return q8bmm_masked_cuda(scores, v, 0, zp, rpc, CONTEXT, window)
-
     def part(h0, h1):
         kv = slice(h0 // group, h0 // group + 1)
         return q8attn_masked_plain(q[:, h0:h1], k[:, kv], v[:, kv], zp, rps,
@@ -1040,8 +1025,6 @@ def check_fused_attention(torch, err, tag, q, k, v, rps, lut, window, sinks,
     got = fused()
     compare(torch, err, "q8attn_masked", f"{tag}: fused vs plain", got,
             by_heads(torch, (b, nh, s, dv), part, chunk))
-    compare(torch, err, "q8attn_masked", f"{tag}: fused vs three kernels",
-            got, three())
     del got
     torch.cuda.empty_cache()
     pairs = b * nh * (s * (s + 1) // 2 if not window else
@@ -1049,13 +1032,11 @@ def check_fused_attention(torch, err, tag, q, k, v, rps, lut, window, sinks,
     t_bytes = b * s * (nh * dq + nkv * (dq + dv) + nh * dv) / HBM_BYTES_PER_S
     t_ops = 2 * pairs * (dq + dv) / INT8_OPS_PER_S
     row = dict(label=tag, fused_ms=time_ms(fused, torch),
-               three_kernels_ms=time_ms(three, torch),
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     MIMO_ATTENTION.append(row)
-    log(f"    q8attn_masked {tag}: {row['fused_ms']:.3f} ms, three kernels "
-        f"{row['three_kernels_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-        f"({row['bound_by']})")
+    log(f"    q8attn_masked {tag}: {row['fused_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
     torch.cuda.empty_cache()
 
 
@@ -1065,24 +1046,17 @@ def check_mimo_kernels(torch, err, cfg, dev):
     (models/mimo_v2_flash.py MimoConfig), on device `dev`, the plain
     versions there too (their int64 products over 8,192 keys would take
     the CPU minutes): q8rope on a full and a window layer's qkv rows; the
-    masked scores, u8softmax_masked and the context of two key/value
-    heads' query heads, causal, and banded with sinks, and the fused
-    attention on the same views (check_fused_attention); moe_route of every
+    fused attention of two key/value heads' query heads on the same views,
+    causal, and banded with sinks (check_fused_attention); moe_route of every
     token over the router's experts with tied scores; q8gemm's grouped
     instance for the experts' gate|up and down with segments of 0, 1,
     127, 129 and every row live; q8swiglu on them; and moe_combine."""
     from qnnpack_tpu_torch.kernels import moe
-    from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES,
-                                                 q8bmm_masked_cuda,
-                                                 q8bmm_masked_plain,
-                                                 valid_keys)
     from qnnpack_tpu_torch.kernels.q8gemm import (q8gemm_grouped_cuda,
                                                   q8gemm_grouped_plain)
     from qnnpack_tpu_torch.kernels.vpu_ops import (q8rope_cuda, q8rope_plain,
                                                    q8swiglu_cuda,
-                                                   q8swiglu_plain,
-                                                   u8softmax_masked_cuda,
-                                                   u8softmax_masked_plain)
+                                                   q8swiglu_plain)
     from qnnpack_tpu_torch.models.mimo_v2_flash import (quantization_scales,
                                                         rope_tables,
                                                         sigmoid_lut, silu_lut)
@@ -1127,43 +1101,11 @@ def check_mimo_kernels(torch, err, cfg, dev):
         q = rows[..., :nh * dq].view(1, s, nh, dq).permute(0, 2, 1, 3)
         k = rows[..., nh * dq:cols].view(1, s, nkv, dq).permute(0, 2, 3, 1)
         v = rows[..., cols:].view(1, s, nkv, dv).permute(0, 2, 1, 3)
-        keep = valid_keys(s, window, dev)
         rps = rq(scales["scores_scale"])
-        scores = q8bmm_masked_cuda(q, k, zp, zp, rps, SCORES, window)
-        want = by_heads(torch, (1, nh, s, s), lambda h0, h1: (
-            q8bmm_masked_plain(q[:, h0:h1], k[:, h0 // group:h0 // group + 1],
-                               zp, zp, rps, SCORES, window)), chunk)
-        compare(torch, err, "q8bmm_masked", f"{tag} scores",
-                torch.where(keep, scores, 0), want)
-        del want
         sinks = u8(nh) if window else None
-        # Rows of one value (head 1 from query 5 on) and of 255 (head 2).
-        scores[0, 1, 5:] = 200
-        scores[0, 2, :, :] = 255
         lut = lut32_tensor(build_softargmax_lut(
             scales["softmax_input_scale"], window + 1 if window else s), dev)
-        want = by_heads(torch, (1, nh, s, s), lambda h0, h1: (
-            u8softmax_masked_plain(scores[0, h0:h1], lut, window,
-                                   None if sinks is None else sinks[h0:h1])
-            [None]), chunk)
-        probs = u8softmax_masked_cuda(scores.view(nh, s, s), lut, window,
-                                      sinks).view(1, nh, s, s)
-        compare(torch, err, "u8softmax_masked",
-                f"{tag} {'with' if window else 'no'} sinks",
-                torch.where(keep, probs, 0), want)
-        del want
         rpc = rq(ctx_scale)
-        ctx = torch.empty((1, s, nh * dv), dtype=torch.uint8, device=dev)
-        q8bmm_masked_cuda(probs, v, 0, zp, rpc, CONTEXT, window,
-                          out=ctx.view(1, s, nh, dv).permute(0, 2, 1, 3))
-        compare(torch, err, "q8bmm_masked", f"{tag} context",
-                ctx.view(1, s, nh, dv).permute(0, 2, 1, 3),
-                by_heads(torch, (1, nh, s, dv), lambda h0, h1: (
-                    q8bmm_masked_plain(probs[:, h0:h1],
-                                       v[:, h0 // group:h0 // group + 1], 0,
-                                       zp, rpc, CONTEXT, window)), chunk))
-        del scores, probs, ctx
-        torch.cuda.empty_cache()
         check_fused_attention(torch, err, tag, q, k, v, rps, lut, window,
                               sinks, rpc, chunk)
         # Again on the spread of the block's products (24 steps), where the
@@ -2051,27 +1993,23 @@ def mimo_calls(torch, params, spec, x, y):
     """kernel_calls' records for MiMo-V2-Flash's block, walking its forward
     (models/mimo_v2_flash.py:mimo_forward) layer by layer, each kernel's
     output the next one's input; the walk must end at the forward's output
-    `y`.  In-place kernels (q8rope, the masked softargmax) are timed on a
-    fresh copy of their input each call, less the copy's own time (`less`:
-    their time depends on the data, and a second pass over their own
-    output would be timed on other data), and `got` is their output on the
-    forward's input; `view` keeps what both outputs specify (the keys
-    inside the mask, the experts' live rows; the routing's four tensors
-    and live rows as bytes).  The fused attention (q8attn_masked) is also
-    held to the three unfused kernels on the card (its `witness`); its
-    plain version runs four heads at a time.  Bytes and operations are
-    counted as the benchmark's reference counts them (each input read
+    `y`.  An in-place kernel (q8rope) is timed on a fresh copy of its
+    input each call, less the copy's own time (`less`: its time depends on
+    the data, and a second pass over its own output would be timed on
+    other data), and `got` is its output on the forward's input; `view`
+    keeps what both outputs specify (the experts' live rows; the routing's
+    four tensors and live rows as bytes).  The fused attention's
+    (q8attn_masked) plain version runs four heads at a time.  Bytes and
+    operations are counted as the benchmark's reference counts them (each input read
     once, K and V once a key/value head, only the mask's pairs), but for
     the fused attention, which writes no scores, the expert kernels at the
     rows routed here."""
     from qnnpack_tpu_torch import kernels as K
     from qnnpack_tpu_torch.kernels import moe
-    from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES,
-                                                 q8attn_masked_plain)
+    from qnnpack_tpu_torch.kernels.q8bmm import q8attn_masked_plain
     from qnnpack_tpu_torch.kernels.q8gemm import q8gemm_grouped_plain
     from qnnpack_tpu_torch.kernels.vpu_ops import q8rope_plain, q8swiglu_plain
-    from qnnpack_tpu_torch.models.mimo_v2_flash import (ACT_ZP, PROBS_ZP,
-                                                        WINDOW)
+    from qnnpack_tpu_torch.models.mimo_v2_flash import ACT_ZP, WINDOW
     cfg = spec["cfg"]
     b, s, h = x.shape
     t = b * s
@@ -2153,15 +2091,6 @@ def mimo_calls(torch, params, spec, x, y):
             return q8attn_masked_plain(
                 q[:, h0:h1], k[:, kv], v[:, kv], ACT_ZP, rp["scores"], lut,
                 window, None if sink is None else sink[h0:h1], rp_ctx)
-
-        def three_kernels():
-            # The unfused path on the card: scores, softargmax, context.
-            scores = K.q8bmm_masked_cuda(q, k, ACT_ZP, ACT_ZP, rp["scores"],
-                                         SCORES, window)
-            K.u8softmax_masked_cuda(scores.view(b * nh, s, s), lut, window,
-                                    sink)
-            return K.q8bmm_masked_cuda(scores, v, PROBS_ZP, ACT_ZP, rp_ctx,
-                                       CONTEXT, window)
         # The bound counts the work alone: q, k and v read once (K and V
         # once a key/value head), the context written once, and the scores'
         # and the context's products over the mask's pairs.
@@ -2172,7 +2101,6 @@ def mimo_calls(torch, params, spec, x, y):
                                                     out=cview),
                    plain=lambda: by_heads(torch, (b, nh, s, dv),
                                           attention_part, chunk),
-                   witness=("the three unfused kernels", three_kernels),
                    library=None,
                    bytes=t * (nh + nkv) * dq + t * nkv * dv + t * nh * dv,
                    ops=2 * pr * (dq + dv))
@@ -2463,12 +2391,6 @@ def time_calls(torch, calls, err, plain_repeats):
         compare(torch, err, call["kernel"], call["label"],
                 view((call.get("got") or call["run"])()),
                 view(call["plain"]()), quiet=True)
-        if "witness" in call:
-            # A second witness: other kernels that compute the same bytes.
-            name, fn = call["witness"]
-            compare(torch, err, call["kernel"], f"{call['label']} == {name}",
-                    view((call.get("got") or call["run"])()), view(fn()),
-                    quiet=True)
         torch.cuda.empty_cache()
         row = dict(kernel=call["kernel"], label=call["label"],
                    bytes=call["bytes"], ops=call["ops"],
@@ -2484,7 +2406,7 @@ def time_calls(torch, calls, err, plain_repeats):
         if call.get("plan") is not None:
             row["plan"] = call["plan"]
         if call["kernel"] in ("q8gemm", "q8conv", "q8stem", "q8gemm_grouped",
-                              "q8bmm_masked", "q8attn_masked"):
+                              "q8attn_masked"):
             bound_ms = max(row["bytes"] / HBM_BYTES_PER_S,
                            row["ops"] / INT8_OPS_PER_S) * 1e3
             row.update(tops=row["ops"] / (row["ms"] * 1e-3) / 1e12,
@@ -2546,8 +2468,8 @@ def check_only_port_kernels(torch, fn, params, x, expected):
     PyTorch kernel runs between the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    own = tuple(f"{name}_kernel" for name in KERNEL_NAMES) + (
-        "dw3x3_kernel", "dw_generic_kernel")
+    own = tuple(f"{name}_kernel" for name in KERNELS) + (
+        "dw3x3_kernel", "dw_generic_kernel", "q8bmm_masked_kernel")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn(params, x)
         torch.cuda.synchronize()
@@ -3773,6 +3695,10 @@ def check_parallel(torch, err, models, rng):
 
 def main() -> int:
     global HBM_BYTES_PER_S, INT8_OPS_PER_S
+    if set(SOURCES) != set(KERNELS):
+        print(f"chip_smoke: SOURCES and kernels.KERNELS differ in "
+              f"{sorted(set(SOURCES) ^ set(KERNELS))}", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():

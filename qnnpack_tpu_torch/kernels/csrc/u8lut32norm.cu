@@ -255,176 +255,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-
-// The masked softargmax of attention (kernels/vpu_ops.py
-// u8softmax_masked_cuda), in place on scores [G, S, S] (rows of `ld`
-// bytes): row r is query i = r % S of head (r / S) % heads, its keys
-// j <= i, and with window W > 0 j > i - W.  With `sinks` the head's sink
-// is one more entry in the max and the sum, with no output:
-//
-//   m = max(max_valid x, sink)    e_j = t[x_j + 255 - m]
-//   s = sum_valid e_j + t[sink + 255 - m]      (mod 2^32)
-//   y_j = min((256 e_j + s / 2) / s, 255)      the valid j; 0 at the other
-//                                              bytes of the row's vectors
-//
-// A group of kT threads takes a row: its valid bytes lie in the 16-byte
-// vectors v0 .. v1, and thread t holds vectors v0 + t + kT u, u < kV, and
-// their table entries in registers from the one read to the store, so
-// the row is read once, written once and each valid byte looked up once
-// (u8rmax and u8lut32norm read it twice and write a copy).  A window row
-// (at most 16 vectors) takes 8 lanes, 32 rows a block; a causal row of up
-// to 8,192 keys a block of 256 threads, its max and sum reduced through
-// shared memory.  Both take 2 vectors a thread.  A full layer at b4 takes
-// 19.8 ms against 5.1 ms of bytes (H100 80GB HBM3, 700 W); by a count of
-// about 20 instructions a valid byte, with the threads past a causal
-// row's query idle (half of them on average), the per-byte work bounds
-// it.  Tried on the card: a warp a causal row, 16 vectors a lane (255
-// registers and a spill; the seven layers' softargmax took 76.7 ms of a
-// 196-ms b4 step of MiMo-V2-Flash's block), and 128 threads a row, 4
-// vectors each, two rows a block, looking each byte up twice (23.2 ms a
-// full layer).
-constexpr int kBlockThreads = 256;
-constexpr int kWindowLanes = 8;   // threads a row of the window instance
-constexpr int kCausalThreads = kBlockThreads;  // of the causal instance
-constexpr int kRowVecs = 2;       // vectors a thread of both
-
-__device__ __forceinline__ uint32_t valid_bits(int vi, int v0, int v1,
-                                               int lo, int hi) {
-  uint32_t bits = 0xFFFFu;
-  if (vi == v0) bits &= 0xFFFFu << (lo & 15);
-  if (vi == v1) bits &= 0xFFFFu >> (15 - (hi & 15));
-  return bits;
-}
-
-__device__ __forceinline__ uint32_t byte_of(const uint4& v, int b) {
-  const uint32_t w = b < 8 ? (b < 4 ? v.x : v.y) : (b < 12 ? v.z : v.w);
-  return (w >> (8 * (b & 3))) & 0xFFu;
-}
-
-// The max (kMax) or the sum over a group of kT threads: a part of a warp
-// (kT <= 32, aligned) by shuffles, whole warps through `red` (the group's
-// kT / 32 words of shared memory; every group of the block reduces at
-// once, since the block synchronizes).
-template <int kT, bool kMax>
-__device__ __forceinline__ uint32_t group_reduce(uint32_t v, uint32_t* red) {
-#pragma unroll
-  for (int off = (kT < 32 ? kT : 32) / 2; off > 0; off /= 2) {
-    const uint32_t o = __shfl_xor_sync(0xFFFFFFFFu, v, off);
-    v = kMax ? max(v, o) : v + o;
-  }
-  if constexpr (kT > 32) {
-    if ((threadIdx.x & 31) == 0) red[(threadIdx.x % kT) >> 5] = v;
-    __syncthreads();
-    v = red[0];
-#pragma unroll
-    for (int w = 1; w < kT / 32; ++w) v = kMax ? max(v, red[w]) : v + red[w];
-    __syncthreads();  // red is written again by the next reduction
-  }
-  return v;
-}
-
-// One row by its group (`live`: the group has a row; a group with none
-// still takes part in the warp's shuffles); t is the thread's index in the
-// group.
-template <int kT, int kV>
-__device__ __forceinline__ void softmax_row(uint8_t* row, int i, int window,
-                                            int sink, const uint32_t* table,
-                                            uint32_t* red, int t, bool live) {
-  const int lo = window > 0 ? max(0, i - window + 1) : 0;
-  const int v0 = lo >> 4;
-  const int v1 = live ? i >> 4 : v0 - 1;
-  uint4 v[kV];
-  uint32_t bits[kV];
-  uint32_t mw = 0;  // the whole vectors' max, four bytes at a time
-  uint32_t mx = 0;  // the edge vectors' valid bytes' max
-#pragma unroll
-  for (int u = 0; u < kV; ++u) {
-    const int vi = v0 + t + kT * u;
-    bits[u] = 0;
-    v[u] = make_uint4(0, 0, 0, 0);
-    if (vi <= v1) {
-      v[u] = *reinterpret_cast<const uint4*>(row + 16 * vi);
-      bits[u] = valid_bits(vi, v0, v1, lo, i);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kV; ++u) {
-    if (bits[u] == 0xFFFFu) {
-      mw = __vmaxu4(mw, __vmaxu4(__vmaxu4(v[u].x, v[u].y),
-                                 __vmaxu4(v[u].z, v[u].w)));
-    } else if (bits[u] != 0) {
-#pragma unroll
-      for (int b = 0; b < 16; ++b) {
-        if ((bits[u] >> b) & 1) mx = max(mx, byte_of(v[u], b));
-      }
-    }
-  }
-  mx = max(mx, max(max(mw & 0xFFu, (mw >> 8) & 0xFFu),
-                   max((mw >> 16) & 0xFFu, mw >> 24)));
-  mx = group_reduce<kT, true>(mx, red);
-  if (sink >= 0) mx = max(mx, static_cast<uint32_t>(sink));
-  const uint32_t off = 255u - mx;
-  uint32_t e[kV][16];
-  uint32_t sum = 0;
-#pragma unroll
-  for (int u = 0; u < kV; ++u) {
-#pragma unroll
-    for (int b = 0; b < 16; ++b) {
-      e[u][b] = (bits[u] >> b) & 1 ? table[byte_of(v[u], b) + off] : 0u;
-      sum += e[u][b];
-    }
-  }
-  sum = group_reduce<kT, false>(sum, red);
-  if (sink >= 0) sum += table[sink + off];
-  const RowDiv d = row_div(sum);
-#pragma unroll
-  for (int u = 0; u < kV; ++u) {
-    if (bits[u] == 0) continue;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int b = 0; b < 16; ++b) {
-      if ((bits[u] >> b) & 1) {
-        w[b >> 2] |= ((norm(e[u][b], d) | d.fill) & 0xFFu) << (8 * (b & 3));
-      }
-    }
-    *reinterpret_cast<uint4*>(row + 16 * (v0 + t + kT * u)) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
-// kBlockThreads / kT rows a block, a group of kT threads each, kV vectors
-// a thread.
-template <int kT, int kV>
-__global__ void __launch_bounds__(kBlockThreads)
-    u8softmax_masked_kernel(uint8_t* __restrict__ x,
-                            const uint32_t* __restrict__ lut,
-                            const uint8_t* __restrict__ sinks, int64_t rows,
-                            int s, int64_t ld, int heads, int window) {
-  constexpr int kRowsBlock = kBlockThreads / kT;
-  constexpr int kRed = kT > 32 ? kT / 32 : 1;
-  __shared__ __align__(16) uint32_t table[256];
-  __shared__ uint32_t red[kRowsBlock * kRed];
-  for (int i = threadIdx.x; i < 256; i += kBlockThreads) {
-    table[i] = __ldg(lut + i);
-  }
-  __syncthreads();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowsBlock;
-  // Every thread of a warp runs the same trips (the shuffles need the
-  // whole warp): a group past the last row runs with no row.
-  for (int64_t first = static_cast<int64_t>(blockIdx.x) * kRowsBlock;
-       first < rows; first += stride) {
-    const int64_t r = first + threadIdx.x / kT;
-    const bool live = r < rows;
-    const int sink = sinks != nullptr && live
-                         ? sinks[static_cast<int>((r / s) % heads)]
-                         : -1;
-    softmax_row<kT, kV>(x + (live ? r : 0) * ld,
-                        live ? static_cast<int>(r % s) : 0, window, sink,
-                        table, red + threadIdx.x / kT * kRed,
-                        threadIdx.x % kT, live);
-  }
-}
-
 struct Launch {
   const uint8_t* x;
   const uint8_t* rmax;
@@ -466,45 +296,4 @@ extern "C" int qnn_u8lut32norm(int device, const void* x, const void* rmax,
                       n,
                       static_cast<cudaStream_t>(stream)};
   return static_cast<int>(qnn_rows::dispatch(vec, lanes, launch));
-}
-
-// Masked softargmax in place over `rows` rows of scores [G, S, S] (row r at
-// x + r ld, query r % S, head (r / S) % heads); window 0 causal, else the
-// band of `window` keys; `sinks` uint8 [heads] or null.  x and ld on
-// 16-byte boundaries; a row's valid span of at most 8,192 bytes.
-extern "C" int qnn_u8softmax_masked(int device, void* x, const void* lut,
-                                    const void* sinks, int64_t rows, int s,
-                                    int64_t ld, int heads, int window,
-                                    void* stream) {
-  const qnn::DeviceGuard guard(device);
-  if (guard.error() != cudaSuccess) {
-    return static_cast<int>(guard.error());
-  }
-  const int span = window > 0 && window < s ? window : s;  // bytes
-  const int vecs = (span + 15) / 16 + (window > 0 ? 1 : 0);
-  if (rows < 0 || s < 1 || ld < s || heads < 1 || window < 0 ||
-      ld % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      vecs > kRowVecs * kCausalThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (rows == 0) return 0;
-  auto* xp = static_cast<uint8_t*>(x);
-  const auto* tp = static_cast<const uint32_t*>(lut);
-  const auto* sp = static_cast<const uint8_t*>(sinks);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const bool window_rows = vecs <= kRowVecs * kWindowLanes;
-  const int per_block =
-      kBlockThreads / (window_rows ? kWindowLanes : kCausalThreads);
-  const int64_t blocks = (rows + per_block - 1) / per_block;
-  const unsigned grid = static_cast<unsigned>(blocks < 65536 ? blocks : 65536);
-  if (window_rows) {
-    u8softmax_masked_kernel<kWindowLanes, kRowVecs>
-        <<<grid, kBlockThreads, 0, st>>>(xp, tp, sp, rows, s, ld, heads,
-                                         window);
-  } else {
-    u8softmax_masked_kernel<kCausalThreads, kRowVecs>
-        <<<grid, kBlockThreads, 0, st>>>(xp, tp, sp, rows, s, ld, heads,
-                                         window);
-  }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -13,10 +13,10 @@ decides how a view is read: A needs K at stride 1; B is read K-major (K at
 stride 1, BERT's key view) or N-major (N at stride 1, BERT's value view and
 any contiguous B); an output view needs N at stride 1.
 
-`q8attn_masked_cuda` is a layer's masked attention in one kernel (the
-scores, the masked softargmax and the context; MiMo-V2-Flash's path), with
-no [B, H, S, S] tensor.  Its result is the three masked steps' byte for
-byte, so each row's max m and table sum s must be known before its first
+`q8attn_masked_cuda` is a layer's masked attention in one kernel,
+csrc/q8attn_masked.cu (the scores, the masked softargmax and the context;
+MiMo-V2-Flash's path), with no [B, H, S, S] tensor.  Its result is the
+three masked steps' byte for byte, so each row's max m and table sum s must be known before its first
 probability min((256 t[x + 255 - m] + s / 2) / s, 255) is formed: flash
 attention's online rescaling is not exact here, since the table's entries
 are rounded.  The kernel sweeps each row's keys three times, recomputing
@@ -178,10 +178,6 @@ def q8bmm_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor, a_zero_point: int,
 q8bmm_cuda.launches = 0
 
 
-# Masks of q8bmm_masked: the pairs (query i, key j) that attention reads.
-SCORES, CONTEXT = 1, 2
-
-
 def valid_keys(s: int, window: int, device=None) -> torch.Tensor:
     """bool [S, S]: key j is read by query i.  window 0: causal, j <= i;
     window W > 0: the band i - W + 1 <= j <= i."""
@@ -200,91 +196,14 @@ def kv_heads_of(heads: int, kv_heads: int, device=None) -> torch.Tensor:
     return torch.arange(heads, device=device) * kv_heads // heads
 
 
-def q8bmm_masked_plain(a_u8, b_u8, a_zero_point: int, b_zero_point: int,
-                       rparams, mode: int, window: int):
-    """Plain version of the masked kernel, [B, H, ...] operands, B with
-    [B, Hkv, ...] leading axes (query head h reads b[:, h * Hkv // H]).
-
-    mode SCORES: A [B, H, S, K] x B [B, Hkv, K, S] -> [B, H, S, S]; the
-    entries outside the mask are 0 here, and unspecified in the kernel's
-    output (softargmax reads only the valid ones).  mode CONTEXT: A
-    [B, H, S, S] (the probabilities, read only inside the mask) x B
-    [B, Hkv, S, N] -> [B, H, S, N], each row summing over its valid
-    keys."""
-    h, hkv = a_u8.shape[1], b_u8.shape[1]
-    b_full = b_u8[:, kv_heads_of(h, hkv, b_u8.device)]
-    s = a_u8.shape[-2]
-    keep = valid_keys(s, window, a_u8.device)
-    if mode == CONTEXT:
-        a_u8 = torch.where(keep, a_u8, torch.full_like(a_u8, a_zero_point))
-        return q8bmm_plain(a_u8, b_full, a_zero_point, b_zero_point, rparams)
-    y = q8bmm_plain(a_u8, b_full, a_zero_point, b_zero_point, rparams)
-    return torch.where(keep, y, torch.zeros_like(y))
-
-
-def q8bmm_masked_cuda(a_u8: torch.Tensor, b_u8: torch.Tensor,
-                      a_zero_point: int, b_zero_point: int, rparams,
-                      mode: int, window: int, out=None):
-    """The masked products of attention on 4-D views, with grouped-query
-    attention: query head h of A [B, H, ...] reads head h // (H / Hkv) of
-    B [B, Hkv, ...] (H a multiple of Hkv).  mode SCORES computes only the
-    output tiles that hold a pair of the mask (window 0: causal; W: the
-    band of W keys ending at the query); mode CONTEXT sums each row over
-    its valid keys only, the others taken as A's zero point.  Any
-    per-tensor requant scheme; the layouts are bmm_layout's."""
-    if mode not in (SCORES, CONTEXT) or window < 0:
-        raise ValueError(f"mode {mode}, window {window}")
-    if a_u8.dim() != 4 or b_u8.dim() != 4 or \
-            a_u8.shape[0] != b_u8.shape[0]:
-        raise ValueError(f"expected [B, H, M, K] and [B, Hkv, K, N], got "
-                         f"{tuple(a_u8.shape)} and {tuple(b_u8.shape)}")
-    bsz, h, m, k = a_u8.shape
-    hkv, n = b_u8.shape[1], b_u8.shape[-1]
-    square = (m, n) if mode == SCORES else (m, k)
-    if square[0] != square[1]:
-        raise ValueError(f"the masked axes differ: {square}")
-    if a_u8.device.type == "cpu" and b_u8.device.type == "cpu":
-        y = q8bmm_masked_plain(a_u8, b_u8, a_zero_point, b_zero_point,
-                               rparams, mode, window)
-        return y if out is None else out.copy_(y)
-    if h % hkv:
-        raise ValueError(f"{h} query heads over {hkv} key/value heads")
-    # bmm_layout judges the strides on B's view expanded to H heads.
-    layout = bmm_layout(a_u8, b_u8[:, :1].expand(bsz, h, *b_u8.shape[2:]),
-                        out)
-    check_strided_cuda("a", a_u8, (4,))
-    check_strided_cuda("b", b_u8, (4,))
-    if out is None:
-        out = torch.empty((bsz, h, m, n), dtype=torch.uint8,
-                          device=a_u8.device)
-    else:
-        check_strided_cuda("out", out, (4,))
-    scales, rq = _build.requant_args(rparams, n, a_u8.device)
-    if scales is not None:
-        raise ValueError("q8bmm_masked takes per-tensor requantization")
-    g, g1, sa, (sb0, _, ldb), b_kmajor, so = layout
-    if g == 0 or m == 0 or n == 0:
-        return out
-    _build.launch(
-        "qnn_q8bmm_masked", a_u8.device.index or 0, a_u8.data_ptr(),
-        b_u8.data_ptr(), out.data_ptr(), g, g1, h // hkv, m, n, k, *sa,
-        sb0, _stride(b_u8, 1), ldb, int(b_kmajor), *so, a_zero_point,
-        b_zero_point, mode, window, *rq[:6], rq[6], _build.stream_of(a_u8))
-    q8bmm_masked_cuda.launches += 1
-    return out
-
-
-q8bmm_masked_cuda.launches = 0
-
-
 # ------------------------------------------------ the fused masked attention
 _M32 = 0xFFFFFFFF
 
 
 def attn_row_div(s: torch.Tensor):
-    """The fused kernel's divide of a row (csrc/q8bmm.cu attn::row_div),
-    for sums s (int64 in [0, 2^32)): (s, -s mod 2^32, m = floor(2^32 / s),
-    half).  A zero sum takes m = 2^32 - 1 and half = 255, so that every
+    """The fused kernel's divide of a row (csrc/q8attn_masked.cu
+    attn::row_div), for sums s (int64 in [0, 2^32)): (s, -s mod 2^32,
+    m = floor(2^32 / s), half).  A zero sum takes m = 2^32 - 1 and half = 255, so that every
     probability of the row is 255, as the reference's 0xFFFFFFFF."""
     q = _M32 // s.clamp(min=1)
     m = torch.where(s > 1, q + ((_M32 - q * s) == s - 1).to(torch.int64),
@@ -294,10 +213,11 @@ def attn_row_div(s: torch.Tensor):
 
 
 def attn_norm(e: torch.Tensor, div) -> torch.Tensor:
-    """min((256 e + s / 2) / s, 255) as the fused kernel computes it (csrc
-    q8bmm.cu attn::norm): num = 256 e + half mod 2^32, q0 = umulhi(num, m),
-    one correction where num - q0 s >= s.  int64 arithmetic, each product
-    split in 16-bit halves so that none passes 2^63."""
+    """min((256 e + s / 2) / s, 255) as the fused kernel computes it
+    (csrc/q8attn_masked.cu attn::norm): num = 256 e + half mod 2^32,
+    q0 = umulhi(num, m), one correction where num - q0 s >= s.  int64
+    arithmetic, each product split in 16-bit halves so that none passes
+    2^63."""
     s, neg_s, m, half = div
     num = (e * 256 + half) & _M32
     q0 = (num * (m >> 16) + ((num * (m & 0xFFFF)) >> 16)) >> 16
@@ -367,7 +287,7 @@ def q8attn_masked_cuda(q_u8: torch.Tensor, k_u8: torch.Tensor,
     `context_rp`, into `out` [B, H, S, dv] (dv at stride 1) or a new
     tensor.  Query head h reads key/value head h // (H / Hkv).  No
     [B, H, S, S] tensor is made: the kernel keeps each score in registers
-    (csrc/q8bmm.cu).  On the card: zero point 128, dq 192 and dv 128
+    (csrc/q8attn_masked.cu).  On the card: zero point 128, dq 192 and dv 128
     (MiMo-V2-Flash's heads), a multiple of 4 query heads a key/value head
     (a block takes 4), S up to 32,768, every base and stride a multiple of
     16 bytes."""

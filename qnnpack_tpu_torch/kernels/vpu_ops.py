@@ -170,67 +170,6 @@ u8lut32norm_cuda.launches = 0
 u8lut32norm_cuda.instance = None  # (vec, lanes) of the last launch
 
 
-def u8softmax_masked_plain(x_u8, lut, window: int, sinks=None):
-    """Plain version of u8softmax_masked: softargmax over each row's valid
-    keys of scores [G, S, S] (row i of a [S, S] block reads keys j <= i,
-    and with window W > 0 only j > i - W), a new tensor whose entries
-    outside the mask are 0.  `sinks`, uint8 [H] or None, is one more
-    virtual entry of each row of head g % H in the max and the sum, with
-    no output; `lut` is int32 [256] holding the uint32 table.  The
-    arithmetic is u8lut32norm_plain's, wrapping in uint32."""
-    from .q8bmm import valid_keys
-    g, s, _ = x_u8.shape
-    keep = valid_keys(s, window, x_u8.device)
-    t = lut.to(torch.int64) & 0xFFFFFFFF
-    x = x_u8.to(torch.int64)
-    m = torch.where(keep, x, 0).amax(dim=-1, keepdim=True)
-    if sinks is not None:
-        sink = sinks.to(torch.int64).repeat(g // sinks.numel())[:, None, None]
-        m = torch.maximum(m, sink)
-    e = torch.where(keep, t[torch.where(keep, x, m) + 255 - m], 0)
-    s_ = e.sum(dim=-1, keepdim=True)
-    if sinks is not None:
-        s_ = s_ + t[sink + 255 - m]
-    s_ = s_ & 0xFFFFFFFF
-    num = (e * 256 + (s_ >> 1)) & 0xFFFFFFFF
-    q = torch.where(s_ == 0, 0xFFFFFFFF, num // s_.clamp(min=1))
-    return torch.where(keep, q.clamp(max=255), 0).to(torch.uint8)
-
-
-def u8softmax_masked_cuda(x_u8, lut, window: int, sinks=None):
-    """Masked softargmax of scores [G, S, S] in place: each row's valid
-    entries become their probabilities (scale 1/256, zero point 0), the
-    others are left unspecified (q8bmm_masked's CONTEXT mode reads only the
-    valid ones); returns x_u8.  One kernel reads the row's valid bytes
-    once, takes their max (and the sink's), sums the table's entries and
-    normalizes, as u8rmax and u8lut32norm do in two."""
-    if x_u8.dim() != 3 or x_u8.shape[1] != x_u8.shape[2]:
-        raise ValueError(f"expected scores [G, S, S], got "
-                         f"{tuple(x_u8.shape)}")
-    if sinks is not None and x_u8.shape[0] % sinks.numel():
-        raise ValueError(f"{sinks.numel()} sinks for {x_u8.shape[0]} "
-                         "score blocks")
-    devices = {x_u8.device.type, lut.device.type} | (
-        set() if sinks is None else {sinks.device.type})
-    if devices == {"cpu"}:
-        return x_u8.copy_(u8softmax_masked_plain(x_u8, lut, window, sinks))
-    _build.check_cuda("x", x_u8, torch.uint8, 3)
-    _build.check_cuda("lut", lut, torch.int32, 1)
-    if sinks is not None:
-        _build.check_cuda("sinks", sinks, torch.uint8, 1)
-    g, s, _ = x_u8.shape
-    _build.launch("qnn_u8softmax_masked", x_u8.device.index or 0,
-                  x_u8.data_ptr(), lut.data_ptr(),
-                  None if sinks is None else sinks.data_ptr(), g * s, s, s,
-                  1 if sinks is None else sinks.numel(), window,
-                  _build.stream_of(x_u8))
-    u8softmax_masked_cuda.launches += 1
-    return x_u8
-
-
-u8softmax_masked_cuda.launches = 0
-
-
 def q8rope_plain(x_u8, cos, sin, heads: int, head_dim: int, seq: int,
                  rparams):
     """Plain version of q8rope on rows [T, >= heads * head_dim] (row t at

@@ -23,11 +23,11 @@ reference/mimo_v2_flash_s8192_qnnpack.py byte for byte.
 
 Every op runs on a kernel of this package on the GPU: q8gemm (the
 projections, the dense FFN, the router's int32 logits through its partial
-instance), q8rope, q8bmm.cu's fused masked attention (kernels/q8bmm.py
-q8attn_masked_cuda: the scores, the softargmax and the context in one
-launch, each score kept in registers, grouped-query attention read in
-place: 16 or 8 query heads share a key/value head with no copy; no
-[B, H, S, S] tensor is made), q8gemm's grouped instance
+instance), q8rope, the fused masked attention (csrc/q8attn_masked.cu,
+kernels/q8bmm.py q8attn_masked_cuda: the scores, the softargmax and the
+context in one launch, each score kept in registers, grouped-query
+attention read in place: 16 or 8 query heads share a key/value head with
+no copy; no [B, H, S, S] tensor is made), q8gemm's grouped instance
 (the held experts' gate|up and down in one launch each), q8swiglu,
 moe_route and moe_combine (kernels/moe.py), q8vadd.  The routing is read
 on the device only, so the whole forward is one CUDA graph

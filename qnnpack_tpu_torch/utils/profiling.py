@@ -42,8 +42,8 @@ The spans and counters the port records:
                  (kernels/q8gemm.py wgmma_route); counted when launched,
                  so an eager run and a capture count and a replay does not
   attn.rope, attn.masked, moe.route, moe.experts, moe.combine
-                 models/mimo_v2_flash.py: the rotary embedding, the masked
-                 scores, softargmax and context, the router and dispatch,
+                 models/mimo_v2_flash.py: the rotary embedding, the fused
+                 masked attention, the router and dispatch,
                  the held experts' grouped GEMMs and SwiGLU, the combine;
                  seen at the warm-up and the capture (a replay runs no
                  Python), and as qnnpack:: ranges under a profiler

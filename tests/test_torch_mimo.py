@@ -1,9 +1,10 @@
 """MiMo-V2-Flash's hybrid block in the port (models/mimo_v2_flash.py) held
 to the plain reference (tests/reference_mimo.py) at a small size on the
 CPU: the forward byte for byte; each new op against its plain form (RoPE,
-masked softargmax with and without a sink, causal and banded q8bmm with
-grouped-query attention, the top-8 choice with ties, SwiGLU, the
-combine); the share test of expert parallelism (the held experts' int32
+the fused masked attention, the top-8 choice with ties, SwiGLU, the
+combine), and the fused attention's three-step oracle (masked scores with
+grouped-query attention, masked softargmax with and without a sink,
+masked context; plain PyTorch, below) against the reference; the share test of expert parallelism (the held experts' int32
 combine accumulators of every share add up to the uncut layer's); a
 planted fault failing the comparison; the spans and counters.
 
@@ -20,18 +21,15 @@ import torch
 import reference_mimo as ref
 from qnnpack_tpu_torch import kernels as tk
 from qnnpack_tpu_torch.kernels import moe as tmoe
-from qnnpack_tpu_torch.kernels.q8bmm import (CONTEXT, SCORES, attn_norm,
-                                             attn_row_div,
+from qnnpack_tpu_torch.kernels.q8bmm import (attn_norm, attn_row_div,
+                                             kv_heads_of,
                                              q8attn_masked_cuda,
-                                             q8attn_masked_plain,
-                                             q8bmm_masked_cuda,
-                                             q8bmm_masked_plain)
+                                             q8attn_masked_plain, q8bmm_plain,
+                                             valid_keys)
 from qnnpack_tpu_torch.kernels.q8gemm import (q8gemm_grouped_cuda,
                                               q8gemm_grouped_plain)
 from qnnpack_tpu_torch.kernels.vpu_ops import (q8rope_cuda, q8rope_plain,
-                                               q8swiglu_cuda, q8swiglu_plain,
-                                               u8softmax_masked_cuda,
-                                               u8softmax_masked_plain)
+                                               q8swiglu_cuda, q8swiglu_plain)
 from qnnpack_tpu_torch.models import mimo_v2_flash as mimo
 from qnnpack_tpu_torch.nn.elementwise import (build_softargmax_lut,
                                               lut32_tensor)
@@ -160,15 +158,14 @@ def test_masked_softargmax_equals_its_plain_form(window, sink):
                           dtype=torch.uint8) if sink else None
     channels = window + 1 if window else s
     lut = build_softargmax_lut(0.06, channels)
-    y = u8softmax_masked_cuda(x.clone(), lut32_tensor(lut), window, sinks)
+    y = u8softmax_masked_plain(x, lut32_tensor(lut), window, sinks)
     keep = ref.mask(s, window, "cpu")
     table = ref.qmath.softargmax_table(0.06, channels)
     want = ref.masked_softargmax(
         x, keep, table,
         None if sinks is None else sinks.repeat(2))
     assert torch.equal(torch.where(keep, y, 0), want)
-    assert torch.equal(y, u8softmax_masked_plain(x, lut32_tensor(lut),
-                                                 window, sinks))
+    assert torch.equal(y, torch.where(keep, y, 0))
     # Rows sum to about 256; with a sink, which takes its share, to less.
     mean = want.to(torch.float64).sum(-1).mean()
     assert mean < 240 if sink else mean > 250
@@ -187,7 +184,7 @@ def test_masked_bmm_with_gqa_equals_its_plain_form(window, heads, kv):
         0, 2, 3, 1)
     v = qkv[..., (heads + kv) * dq:].view(b, s, kv, dv).permute(0, 2, 1, 3)
     rp = make_requant_params("fp32", 0.003, ZP)
-    scores = q8bmm_masked_cuda(q, k, ZP, ZP, rp, SCORES, window)
+    scores = q8bmm_masked_plain(q, k, ZP, ZP, rp, SCORES, window)
     keep = ref.mask(s, window, "cpu")
     group = heads // kv
     want = torch.stack([torch.stack([ref.qmath.requant_fp32(
@@ -197,14 +194,12 @@ def test_masked_bmm_with_gqa_equals_its_plain_form(window, heads, kv):
                        torch.where(keep, want, 0))
     probs = torch.randint(0, 256, (b, heads, s, s), generator=gen,
                           dtype=torch.uint8)
-    ctx = torch.zeros((b, s, heads * dv), dtype=torch.uint8)
-    q8bmm_masked_cuda(probs, v, 0, ZP, rp, CONTEXT, window,
-                      out=ctx.view(b, s, heads, dv).permute(0, 2, 1, 3))
+    ctx = q8bmm_masked_plain(probs, v, 0, ZP, rp, CONTEXT, window)
     masked = torch.where(keep, probs, 0)
     want = torch.stack([torch.stack([ref.qmath.requant_fp32(
         ref.qmath.bmm_acc(masked[i, h], v[i, h // group], 0, ZP), 0.003, ZP)
         for h in range(heads)]) for i in range(b)])
-    assert torch.equal(ctx.view(b, s, heads, dv).permute(0, 2, 1, 3), want)
+    assert torch.equal(ctx, want)
     # The entries outside the mask never reach the context.
     noisy = torch.where(keep, probs, 255 - probs)
     assert torch.equal(q8bmm_masked_plain(noisy, v, 0, ZP, rp, CONTEXT,
@@ -234,8 +229,60 @@ def _attention_inputs(gen, b, s, heads, kv, dq=192, dv=128, case=None):
     return q, k, v, sinks, qkv
 
 
+# The fused attention's independent oracle: attention in three plain steps
+# (masked scores, masked softargmax, masked context), each held to the
+# reference above.
+SCORES, CONTEXT = 1, 2
+
+
+def q8bmm_masked_plain(a_u8, b_u8, a_zero_point: int, b_zero_point: int,
+                       rparams, mode: int, window: int):
+    """Attention's masked products, [B, H, ...] operands, B with
+    [B, Hkv, ...] leading axes (query head h reads b[:, h * Hkv // H]).
+
+    mode SCORES: A [B, H, S, K] x B [B, Hkv, K, S] -> [B, H, S, S], the
+    entries outside the mask 0.  mode CONTEXT: A [B, H, S, S] (the
+    probabilities, read only inside the mask) x B [B, Hkv, S, N] ->
+    [B, H, S, N], each row summing over its valid keys."""
+    h, hkv = a_u8.shape[1], b_u8.shape[1]
+    b_full = b_u8[:, kv_heads_of(h, hkv, b_u8.device)]
+    s = a_u8.shape[-2]
+    keep = valid_keys(s, window, a_u8.device)
+    if mode == CONTEXT:
+        a_u8 = torch.where(keep, a_u8, torch.full_like(a_u8, a_zero_point))
+        return q8bmm_plain(a_u8, b_full, a_zero_point, b_zero_point, rparams)
+    y = q8bmm_plain(a_u8, b_full, a_zero_point, b_zero_point, rparams)
+    return torch.where(keep, y, torch.zeros_like(y))
+
+
+def u8softmax_masked_plain(x_u8, lut, window: int, sinks=None):
+    """Softargmax over each row's valid keys of scores [G, S, S] (row i of
+    a [S, S] block reads keys j <= i, and with window W > 0 only
+    j > i - W), a new tensor whose entries outside the mask are 0.
+    `sinks`, uint8 [H] or None, is one more virtual entry of each row of
+    head g % H in the max and the sum, with no output; `lut` is int32 [256]
+    holding the uint32 table.  The arithmetic is u8lut32norm_plain's,
+    wrapping in uint32."""
+    g, s, _ = x_u8.shape
+    keep = valid_keys(s, window, x_u8.device)
+    t = lut.to(torch.int64) & 0xFFFFFFFF
+    x = x_u8.to(torch.int64)
+    m = torch.where(keep, x, 0).amax(dim=-1, keepdim=True)
+    if sinks is not None:
+        sink = sinks.to(torch.int64).repeat(g // sinks.numel())[:, None, None]
+        m = torch.maximum(m, sink)
+    e = torch.where(keep, t[torch.where(keep, x, m) + 255 - m], 0)
+    s_ = e.sum(dim=-1, keepdim=True)
+    if sinks is not None:
+        s_ = s_ + t[sink + 255 - m]
+    s_ = s_ & 0xFFFFFFFF
+    num = (e * 256 + (s_ >> 1)) & 0xFFFFFFFF
+    q = torch.where(s_ == 0, 0xFFFFFFFF, num // s_.clamp(min=1))
+    return torch.where(keep, q.clamp(max=255), 0).to(torch.uint8)
+
+
 def _three_steps(q, k, v, rps, lut, window, sinks, rpc):
-    """The unfused path's plain versions: scores, softargmax, context."""
+    """Attention in three plain steps: scores, softargmax, context."""
     b, h, s, _ = q.shape
     scores = q8bmm_masked_plain(q, k, ZP, ZP, rps, SCORES, window)
     probs = u8softmax_masked_plain(scores.reshape(b * h, s, s), lut, window,
@@ -270,7 +317,7 @@ def test_fused_attention_equals_three_steps_and_reference(window, heads, kv,
                                                           s):
     """The fused op's plain version (the kernel's sweeps: the rows' max
     from the accumulators, the table's sum, the reciprocal divide) against
-    the unfused plain path and the reference, byte for byte: causal, and
+    the three plain steps and the reference, byte for byte: causal, and
     the 128-key band with the heads' sinks; GQA 16:1 and 8:1; qk 192, v
     128; sequences that are no multiple of a tile."""
     gen = torch.Generator().manual_seed(s + 3 * heads * kv + window)
@@ -300,7 +347,7 @@ def test_fused_attention_equals_three_steps_and_reference(window, heads, kv,
 def test_fused_attention_edge_rows(case, window):
     """Rows whose max is the sink, rows of all-equal scores, and scales
     that saturate the scores and the context: the fused op's plain version
-    against the unfused plain path."""
+    against the three plain steps."""
     gen = torch.Generator().manual_seed(len(case) + window)
     q, k, v, sinks, qkv = _attention_inputs(gen, 1, 70, 8, 2, case=case)
     if case != "sink_max" and not window:
@@ -362,7 +409,7 @@ def test_fused_attention_refuses_what_it_does_not_take():
         q8attn_masked_cuda(q, k, v, ZP, rp, lut, 0, None, rp,
                            out=torch.empty((1, 4, 16, 16),
                                            dtype=torch.uint8))
-    # Any zero point and head sizes on the CPU: the unfused path's bytes.
+    # Any zero point and head sizes on the CPU: the three steps' bytes.
     got = q8attn_masked_plain(q, k, v, 100, rp, lut, 0, None, rp)
     scores = q8bmm_masked_plain(q, k, 100, 100, rp, SCORES, 0)
     probs = u8softmax_masked_plain(scores.reshape(4, 16, 16), lut, 0)
@@ -565,13 +612,12 @@ def _card():
 
 @pytest.mark.card
 def test_card_attention_kernels_equal_their_plain_forms():
-    """q8rope, the masked scores and context at the block's head sizes
-    (GQA 16 and 8 to 1) and u8softmax_masked at S = 1,024, causal and
-    banded with sinks, each against its plain version."""
+    """q8rope on a full and a window layer's qkv rows at the block's head
+    sizes (GQA 16 and 8 to 1) and S = 1,024, against its plain version."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(11)
     b, s, nh, dq, dv = 1, 1024, 64, 192, 128
-    for kv, window in ((4, 0), (8, 128)):
+    for kv in (4, 8):
         width = (nh + kv) * dq + kv * dv
         qkv = torch.randint(0, 256, (b * s, width), generator=gen,
                             dtype=torch.uint8, device=dev)
@@ -581,35 +627,6 @@ def test_card_attention_kernels_equal_their_plain_forms():
         want = q8rope_plain(qkv.cpu(), c.cpu(), sn.cpu(), nh + kv, dq, s, rp)
         q8rope_cuda(qkv, c, sn, nh + kv, dq, s, rp)
         assert torch.equal(qkv[:, :(nh + kv) * dq].cpu(), want)
-        rows = qkv.view(b, s, width)
-        q = rows[..., :nh * dq].view(b, s, nh, dq).permute(0, 2, 1, 3)
-        k = rows[..., nh * dq:(nh + kv) * dq].view(b, s, kv, dq).permute(
-            0, 2, 3, 1)
-        v = rows[..., (nh + kv) * dq:].view(b, s, kv, dv).permute(0, 2, 1, 3)
-        rps = make_requant_params("fp32", 0.003007, ZP)
-        scores = q8bmm_masked_cuda(q, k, ZP, ZP, rps, SCORES, window)
-        keep = ref.mask(s, window, dev)
-        want = q8bmm_masked_plain(q.cpu(), k.cpu(), ZP, ZP, rps, SCORES,
-                                  window)
-        assert torch.equal(torch.where(keep, scores, 0).cpu(), want)
-        sinks = torch.randint(96, 192, (nh,), generator=gen,
-                              dtype=torch.uint8, device=dev) \
-            if window else None
-        lut = lut32_tensor(build_softargmax_lut(0.06, window + 1 if window
-                                                else s), dev)
-        flat = scores.view(b * nh, s, s)
-        want = u8softmax_masked_plain(flat.cpu(), lut.cpu(), window,
-                                      None if sinks is None else sinks.cpu())
-        u8softmax_masked_cuda(flat, lut, window, sinks)
-        assert torch.equal(torch.where(keep, flat, 0).cpu(), want)
-        ctx = torch.empty((b, s, nh * dv), dtype=torch.uint8, device=dev)
-        rpc = make_requant_params("fp32", 0.0221, ZP)
-        q8bmm_masked_cuda(scores, v, 0, ZP, rpc, CONTEXT, window,
-                          out=ctx.view(b, s, nh, dv).permute(0, 2, 1, 3))
-        want = q8bmm_masked_plain(scores.cpu(), v.cpu(), 0, ZP, rpc,
-                                  CONTEXT, window)
-        assert torch.equal(ctx.view(b, s, nh, dv).permute(0, 2, 1, 3).cpu(),
-                           want)
 
 
 @pytest.mark.card
@@ -617,11 +634,9 @@ def test_card_attention_kernels_equal_their_plain_forms():
     (1024, 64, 4, 0), (1024, 64, 8, 128), (272, 32, 2, 0), (272, 16, 2, 128),
     (200, 32, 2, 0), (200, 16, 2, 128), (272, 8, 2, 0), (200, 12, 3, 128),
     (257, 4, 1, 0), (257, 4, 1, 128)])
-def test_card_fused_attention_equals_the_three_kernels(s, heads, kv, window):
-    """The fused kernel against its plain version and, where the sequence
-    is a multiple of 16 (u8softmax_masked's rows), the three unfused
-    kernels (scores, u8softmax_masked, context) on the card: GQA 16:1 and
-    8:1 at the block's head sizes, causal and banded with sinks, at
+def test_card_fused_attention_equals_its_plain_form(s, heads, kv, window):
+    """The fused kernel against its plain version on the card: GQA 16:1
+    and 8:1 at the block's head sizes, causal and banded with sinks, at
     sequences that are no multiple of a tile, and 4:1; once on uniform
     bytes (rows that saturate), once on the products' spread.  Two query
     heads a key/value head are refused (a block takes four)."""
@@ -654,13 +669,6 @@ def test_card_fused_attention_equals_the_three_kernels(s, heads, kv, window):
                            out=out)
         assert tk.launch_counts()["q8attn_masked"] == 1
         assert torch.equal(out.cpu(), want)
-        if s % 16:
-            continue
-        scores = q8bmm_masked_cuda(qd, kd, ZP, ZP, rps, SCORES, window)
-        u8softmax_masked_cuda(scores.view(2 * heads, s, s), lutd, window,
-                              sinksd)
-        three = q8bmm_masked_cuda(scores, vd, 0, ZP, rpc, CONTEXT, window)
-        assert torch.equal(out, three)
     with pytest.raises(ValueError, match="multiple of 4"):
         q8attn_masked_cuda(qd[:, :2], kd[:, :1], vd[:, :1], ZP, rps, lutd,
                            window, None if sinksd is None else sinksd[:2],
@@ -688,7 +696,6 @@ def test_card_forward_equals_the_cpu_forward():
     y = mimo.mimo_forward(params, spec, x.to(dev))
     counts = tk.launch_counts()
     assert counts["q8attn_masked"] == len(mc.pattern)
-    assert counts["q8bmm_masked"] == counts["u8softmax_masked"] == 0
     got = profiling.counters()
     assert got["attn.masked"] == got["attn.fused"] == len(mc.pattern)
     assert torch.equal(y.cpu(), want)

@@ -113,6 +113,20 @@ def test_chip_smoke_reads_the_peaks_from_the_table(monkeypatch):
     assert chip_smoke.card_peaks() == (3350.0e9, 1979.0e12)
 
 
+def test_chip_smoke_names_every_kernel(monkeypatch):
+    """chip_smoke.py counts launches over kernels.KERNELS, maps each kernel
+    to its source and JAX counterpart in SOURCES, and refuses to start
+    where SOURCES names another set."""
+    import chip_smoke
+    assert set(chip_smoke.EXPECTED_LAUNCHES["resnet18"]) == \
+        set(tkernels.KERNELS)
+    assert set(chip_smoke.SOURCES) == set(tkernels.KERNELS)
+    for source, _ in chip_smoke.SOURCES.values():
+        assert (ROOT / source).is_file(), source
+    monkeypatch.delitem(chip_smoke.SOURCES, "q8attn_masked")
+    assert chip_smoke.main() == 2
+
+
 # ----------------------------------------------------------------- logging
 @pytest.mark.parametrize("level", ["debug", "info", "warning", "error",
                                    "fatal", "none"])
@@ -136,6 +150,21 @@ def test_log_functions_are_the_loggers():
 
 
 # ------------------------------------------------------------------ timing
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test, the previous count restored after.
+    Next to the other test workers, torch's default of a thread a core
+    oversubscribes the host, and measure_loop chases the jitter that makes
+    by doubling its iterations up to max_iters."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("chain", [True, False])
 def test_measure_loop_on_cpu_tensors(chain):
     w = torch.ones((64, 64), dtype=torch.float32)
@@ -149,6 +178,7 @@ def test_measure_loop_on_cpu_tensors(chain):
     assert m.rate(2.0) == 2.0 / m.seconds
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("chain", [True, False])
 def test_measure_loop_uint8_body(chain):
     m = ttiming.measure_loop(lambda v: v + 1,
@@ -158,12 +188,14 @@ def test_measure_loop_uint8_body(chain):
     assert m.seconds > 0 and m.n_iters & (m.n_iters - 1) == 0
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_measure_loop_calibrates_without_an_estimate():
     m = ttiming.measure_loop(lambda v: v * 2, torch.ones(1024),
                              min_seconds=0.05, repeats=3)
     assert m.seconds > 0 and m.dispersion >= 0
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_measure_loop_cpu_tensors_never_capture(monkeypatch):
     from qnnpack_tpu_torch.ops import base
 
