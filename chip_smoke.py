@@ -209,11 +209,13 @@ bounds divide by the card's data-sheet peaks from config.tune_params().
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -997,13 +999,30 @@ def check_kernels(torch, err):
 MIMO_ATTENTION = []
 
 
+@functools.cache
+def bench_fused_attention():
+    """scripts/bench_fused_attention.py as a module: its text edits of
+    q8attn_masked.cu (the kernel without its sweeps' arithmetic), the
+    variant build and the b4 layer inputs."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "scripts" / \
+        "bench_fused_attention.py"
+    spec = importlib.util.spec_from_file_location("bench_fused_attention",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def check_fused_attention(torch, err, tag, q, k, v, rps, lut, window, sinks,
-                          rpc, chunk):
+                          rpc, chunk, stripped=None):
     """The fused masked attention (q8attn_masked) on views q, k, v of one
     qkv buffer against its plain version (`chunk` heads at a time), timed
     beside its bound: q, k and v read once (K and V once a key/value
     head), the context written once, and the scores' and the context's
-    products over the mask's pairs."""
+    products over the mask's pairs; with `stripped` (a library of
+    bench_fused_attention.build_variants), timed again on its kernel, the
+    same without the sweeps' arithmetic.  Returns the row."""
     from qnnpack_tpu_torch.kernels.q8bmm import (q8attn_masked_cuda,
                                                  q8attn_masked_plain)
 
@@ -1034,10 +1053,42 @@ def check_fused_attention(torch, err, tag, q, k, v, rps, lut, window, sinks,
     row = dict(label=tag, fused_ms=time_ms(fused, torch),
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    msg = ""
+    if stripped is not None:
+        with bench_fused_attention().attention_from(stripped):
+            row["stripped_ms"] = time_ms(fused, torch)
+        msg = f", {row['stripped_ms']:.3f} ms without the sweeps' arithmetic"
     MIMO_ATTENTION.append(row)
-    log(f"    q8attn_masked {tag}: {row['fused_ms']:.3f} ms, bound "
+    log(f"    q8attn_masked {tag}: {row['fused_ms']:.3f} ms{msg}, bound "
         f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
     torch.cuda.empty_cache()
+    return row
+
+
+def check_fused_attention_b4(torch, err, cfg, dev, stripped):
+    """Both instances of the fused attention alone at MiMo-V2-Flash's b4 x
+    8,192 full and window layers (every query head), held to the plain
+    version and timed with and without the sweeps' arithmetic
+    (check_fused_attention), with the hidden-arithmetic share
+    (t_products + A - t_full) / A: A the arithmetic time of the kernel
+    whose warpgroups ran in lockstep (bench_fused_attention
+    LOCKSTEP_ARITH_MS), t_full and t_products this kernel's two times."""
+    bench = bench_fused_attention()
+    for kind in ("full", "window"):
+        q, k, v, _, rps, lut, window, sinks, rpc = bench.layer_inputs(
+            torch, cfg, kind, 4, dev)
+        tag = f"{kind} b4 {q.shape[1]}/{k.shape[1]} heads S={cfg.seq_len}"
+        row = check_fused_attention(
+            torch, err, tag, q, k, v, rps, lut, window, sinks, rpc,
+            math.gcd(q.shape[1] // k.shape[1], 4), stripped)
+        row["lockstep_arith_ms"] = bench.LOCKSTEP_ARITH_MS[kind]
+        row["hidden_share"] = bench.hidden_share(
+            row["fused_ms"], row["stripped_ms"], row["lockstep_arith_ms"])
+        log(f"    q8attn_masked {tag}: hidden-arithmetic share "
+            f"{row['hidden_share']:.3f} of the lockstep kernel's "
+            f"{row['lockstep_arith_ms']:.2f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def check_mimo_kernels(torch, err, cfg, dev):
@@ -1047,11 +1098,13 @@ def check_mimo_kernels(torch, err, cfg, dev):
     versions there too (their int64 products over 8,192 keys would take
     the CPU minutes): q8rope on a full and a window layer's qkv rows; the
     fused attention of two key/value heads' query heads on the same views,
-    causal, and banded with sinks (check_fused_attention); moe_route of every
-    token over the router's experts with tied scores; q8gemm's grouped
-    instance for the experts' gate|up and down with segments of 0, 1,
-    127, 129 and every row live; q8swiglu on them; and moe_combine."""
-    from qnnpack_tpu_torch.kernels import moe
+    causal, and banded with sinks (check_fused_attention), then of whole
+    b4 layers, with the kernel's time without its sweeps' arithmetic
+    (check_fused_attention_b4); moe_route of every token over the
+    router's experts with tied scores; q8gemm's grouped instance for the
+    experts' gate|up and down with segments of 0, 1, 127, 129 and every
+    row live; q8swiglu on them; and moe_combine."""
+    from qnnpack_tpu_torch.kernels import _build, moe
     from qnnpack_tpu_torch.kernels.q8gemm import (q8gemm_grouped_cuda,
                                                   q8gemm_grouped_plain)
     from qnnpack_tpu_torch.kernels.vpu_ops import (q8rope_cuda, q8rope_plain,
@@ -1069,6 +1122,18 @@ def check_mimo_kernels(torch, err, cfg, dev):
     s, dq, dv, h = cfg.seq_len, cfg.qk_dim, cfg.v_dim, cfg.hidden
     scales = quantization_scales(cfg)
     zp = 128
+    # The fused attention without its sweeps' arithmetic, and ptxas's
+    # registers and spills of both instances, shipped and stripped.
+    bench = bench_fused_attention()
+    shipped = (_build.CSRC / "q8attn_masked.cu").read_text()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stripped, stripped_ptxas = bench.build_variants(
+        {"stripped": (bench.stripped_source(shipped), None)},
+        Path(tempfile.mkdtemp(dir=_build.BUILD_DIR)))["stripped"]
+    MIMO_ATTENTION.append(dict(
+        label="ptxas", shipped=bench.ptxas_instances(_build.build_log),
+        stripped=stripped_ptxas))
+    log(f"    q8attn_masked ptxas: {MIMO_ATTENTION[-1]}")
 
     def u8(*shape):
         return torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8,
@@ -1113,9 +1178,11 @@ def check_mimo_kernels(torch, err, cfg, dev):
         qkv[:, :cols].copy_(torch.randint(100, 157, (s, cols), generator=gen,
                                           dtype=torch.uint8, device=dev))
         check_fused_attention(torch, err, f"{tag}, products' spread", q, k,
-                              v, rps, lut, window, sinks, rpc, chunk)
+                              v, rps, lut, window, sinks, rpc, chunk,
+                              stripped)
         del qkv, rows, q, k, v
         torch.cuda.empty_cache()
+    check_fused_attention_b4(torch, err, cfg, dev, stripped)
 
     # The routing: a quarter of the experts tie on the logit of expert 0,
     # and the first hundred tokens share one row of logits.

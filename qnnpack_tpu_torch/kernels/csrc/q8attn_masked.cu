@@ -33,25 +33,45 @@
 //     of the mask (the causal triangle, or the band); blocks of the last
 //     query rows, which hold the most keys, start first;
 //   - the scores are wgmma m64n32k32 .s8.u8 products of Q' = q - 128 (in
-//     shared memory) and raw K tiles (cp.async, two stages); an
-//     accumulator plus the row's 1.5 * 2^23 - 128 sum q' is the float bits
-//     of the exact sum (q - 128)(k - 128), so that the fp32
-//     requantization needs no integer conversion;
+//     shared memory) and raw K tiles; an accumulator plus the row's
+//     1.5 * 2^23 - 128 sum q' is the float bits of the exact sum
+//     (q - 128)(k - 128), so that the fp32 requantization needs no integer
+//     conversion;
 //   - each K tile's keys are placed so that the accumulator fragment of
 //     the scores is the A fragment of the probabilities: no shuffles;
-//   - V tiles are fetched as they lie (cp.async) and transposed to
-//     K-major int8 (v - 128) in shared memory, the B operand of the
-//     context's wgmma m64n128k32 .u8.s8, whose probabilities come from
-//     registers;
+//   - V tiles are fetched as they lie and transposed to K-major int8
+//     (v - 128) in shared memory, the B operand of the context's wgmma
+//     m64n128k32 .u8.s8, whose probabilities come from registers;
 //   - the softargmax table has 16 copies in shared memory, one for each
 //     lane of a half-warp, and each probability's divide is a
 //     multiply-high by the row's reciprocal and one correction.
-// What bounds it on the card: the arithmetic of the second and third
-// sweeps (about 9 and 15 instructions a score) beside the three products,
-// not the bytes.  At MiMo-V2-Flash's b4 x 8,192 it takes 27.1 ms a full
-// layer and 2.8 ms a window layer, against 53.8 and 3.6 ms for the three
-// unfused kernels that it replaced (H100 80GB HBM3, 700 W); without the
-// sweeps' arithmetic a full layer takes 13.9 ms.
+// What bounds it on the card: each warpgroup's own chain, 32 keys at a
+// time: its six dependent score products (m64n32k32 is short; the chain
+// waits on latency, at ~40% of the tensor rate), then its sweep arithmetic
+// (about 9 and 15 instructions a score in the second and third sweeps),
+// then the next products, which need the sweep's registers.  At
+// MiMo-V2-Flash's b4 x 8,192 a full layer took 27.1 ms with one
+// block-wide barrier a key tile (the four warpgroups in lockstep), 13.8 ms
+// without the arithmetic; with the products of two of the four
+// warpgroups removed it took as long, and with their arithmetic removed
+// as long again, so the warpgroups wait on their own chains, not on the
+// card's units.  Taking turns at the tensor cores (FlashAttention-3's
+// ping-pong; two pairs, or four in rotation, ordered on named barriers)
+// only added waiting: 30.3 and 26.8 ms.  So nothing block-wide holds the
+// warpgroups together, and each runs its chain as fast as it goes.  The
+// tiles come through a ring of kSlots slots (a K tile, a V tile as it
+// lies, the V tile transposed), each with three mbarriers: `full` (every
+// thread's cp.async copies landed, cp.async.mbarrier.arrive), `vfull`
+// (every warp's share of the transposition stored) and `empty` (every
+// warp done with the slot).  In iteration it every thread copies its
+// share of iteration it + kLead's tiles and transposes its share of
+// iteration it + 1's V tile once its products are issued, so the copies'
+// latency stays off the chain, and a third-sweep context product goes out
+// with the next 32 keys' scores.  A warpgroup may run up to an iteration
+// ahead of the slowest without waiting for a slot, for kSlots >= kLead + 2
+// (tests/test_torch_attn_schedule.py mirrors the ring).  A full layer
+// takes 25.9 ms, a window layer 2.84 ms (2.80 in lockstep; H100 80GB
+// HBM3, 700 W).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -77,11 +97,9 @@ constexpr int kTableBytes = 256 * kCopies * 4;
 constexpr int kCore = 128;       // a core matrix: 8 rows of 16 bytes
 constexpr int kVGroup = 4 * kCore + 16;  // 8 value columns x 64 keys, padded
 constexpr int kVBytes = (kDv / 8) * kVGroup;
-constexpr int kKStages = 2;
 constexpr int kNs = 32;          // keys a product of the scores
 constexpr int kRawPitch = kDv + 16;      // a V tile as it lies, padded
 constexpr int kRawBytes = kKeys * kRawPitch;
-constexpr int kVStages = 3;
 constexpr int kDq = 192;         // the query and key width
 constexpr int kChunks = kDq / 16;
 constexpr int kTileBytes = kKeys * kDq;  // a K tile, as a Q' tile
@@ -94,8 +112,17 @@ constexpr float kMagic = 12582912.0f;
 // often), one block of 512 threads an SM.
 constexpr int kHeads = 4;
 constexpr int kBlockThreads = 128 * kHeads;
-constexpr int kBlockSmem = kTableBytes + (kHeads + kKStages) * kTileBytes +
-                           kVStages * kVBytes + 2 * kRawBytes;
+
+// The ring: a slot holds a K tile, a V tile as it lies and the V tile
+// transposed; its copies start kLead iterations ahead of its scores.
+constexpr int kSlots = 4;
+constexpr int kLead = 2;
+constexpr int kSlotBytes = kTileBytes + kRawBytes + kVBytes;
+constexpr int kBlockSmem = kTableBytes + kHeads * kTileBytes +
+                           kSlots * kSlotBytes + 3 * kSlots * 8;
+static_assert(kSlots >= kLead + 2, "a refill waits for a warpgroup behind");
+static_assert(kLead >= 2, "a transposition waits for a warpgroup behind");
+static_assert(kSlotBytes % 16 == 0, "slots 16-byte aligned");
 
 struct AttnArgs {
   const uint8_t* q;
@@ -126,6 +153,14 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// This thread's arrival on `bar` once all its cp.async copies so far have
+// landed, counted among the barrier's expected arrivals.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   wg::smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void fence_words(uint32_t (&a)[4]) {
@@ -340,9 +375,8 @@ __device__ __forceinline__ void sweep_tile(bool edge,
 // Three sweeps over the block's key tiles, each recomputing the scores
 // (wgmma, Q' from shared memory) 32 keys at a time: the rows' max, their
 // sums, then the probabilities in registers as the A operand of the
-// context's wgmma.  K tiles by cp.async, two stages; V tiles fetched as
-// they lie two iterations ahead (two raw buffers) and transposed to K-major
-// int8 one ahead (three stages).
+// context's wgmma.  Iteration it (sweep it / ntiles, key tile it % ntiles)
+// reads slot it % kSlots of the ring (the header's schedule).
 template <bool kBand>
 __global__ void __launch_bounds__(attn::kBlockThreads, 1)
     q8bmm_masked_kernel(const attn::AttnArgs p) {
@@ -366,9 +400,10 @@ __global__ void __launch_bounds__(attn::kBlockThreads, 1)
 
   uint32_t* table = reinterpret_cast<uint32_t*>(smem);
   uint8_t* qs = smem + kTableBytes;
-  uint8_t* ks = qs + kHeads * kTileBytes;
-  uint8_t* vs = ks + kKStages * kTileBytes;
-  uint8_t* raw = vs + kVStages * kVBytes;  // two V tiles as they lie
+  uint8_t* slots = qs + kHeads * kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(slots + kSlots * kSlotBytes);
+  uint64_t* vfull = full + kSlots;
+  uint64_t* empty = vfull + kSlots;
 
   const int lo_key = kBand ? max(0, m0 - p.window + 1) : 0;
   const int u0 = lo_key / kKeys;
@@ -377,10 +412,12 @@ __global__ void __launch_bounds__(attn::kBlockThreads, 1)
   const uint8_t* kb = p.k + b * p.sk0 + kvh * p.sk1;
   const uint8_t* vb = p.v + b * p.sv0 + kvh * p.sv1;
 
-  // The K tile of key tile u into stage `stage`, key kappa(n) at row n.
-  const auto load_k = [&](int u, int stage) {
-    const int k0 = (u0 + u) * kKeys;
-    uint8_t* dst = ks + stage * kTileBytes;
+  // Iteration j's copies into its slot: the K tile of key tile j % ntiles,
+  // key kappa(n) at row n, and in the third sweep its V rows as they lie;
+  // then the thread's arrival on the slot's full barrier.
+  const auto load_slot = [&](int j) {
+    const int k0 = (u0 + j % ntiles) * kKeys;
+    uint8_t* dst = slots + (j % kSlots) * kSlotBytes;
 #pragma unroll
     for (int i = 0; i < (kKeys * kChunks + kBlockThreads - 1) / kBlockThreads;
          ++i) {
@@ -393,6 +430,19 @@ __global__ void __launch_bounds__(attn::kBlockThreads, 1)
       im::cp_async<16>(dst + idx * 16, ok ? kb + key * p.ldk + kc * 16 : kb,
                        ok);
     }
+    if (j >= 2 * ntiles) {
+      uint8_t* raw = dst + kTileBytes;
+#pragma unroll
+      for (int i = 0; i < kKeys * kDv / 16 / kBlockThreads; ++i) {
+        const int idx = tid + kBlockThreads * i;
+        const int r = idx / (kDv / 16);
+        const int c = idx % (kDv / 16);
+        const bool ok = k0 + r < p.s;
+        im::cp_async<16>(raw + r * kRawPitch + c * 16,
+                         ok ? vb + (k0 + r) * p.ldv + c * 16 : vb, ok);
+      }
+    }
+    cp_async_arrive(full + j % kSlots);
   };
   // A thread's 4 x 4 blocks of a V tile: keys 4 q .. 4 q + 3, columns n0
   // .. n0 + 3; a warp's stores of one column hit 32 distinct banks.
@@ -405,25 +455,11 @@ __global__ void __launch_bounds__(attn::kBlockThreads, 1)
     c16 = w16 >> 2;
     q = 4 * c16 + (lb & 3);
   };
-  // Key tile u's V rows as they lie into raw buffer `buf` (no commit).
-  const auto load_v = [&](int u, int buf) {
-    const int k0 = (u0 + u) * kKeys;
-    uint8_t* dst = raw + buf * kRawBytes;
-#pragma unroll
-    for (int i = 0; i < kKeys * kDv / 16 / kBlockThreads; ++i) {
-      const int idx = tid + kBlockThreads * i;
-      const int r = idx / (kDv / 16);
-      const int c = idx % (kDv / 16);
-      const bool ok = k0 + r < p.s;
-      im::cp_async<16>(dst + r * kRawPitch + c * 16,
-                       ok ? vb + (k0 + r) * p.ldv + c * 16 : vb, ok);
-    }
-  };
-  // Raw buffer `buf` transposed to K-major and rebiased to int8 into V
-  // stage `stage`.
-  const auto store_v = [&](int buf, int stage) {
-    const uint8_t* src = raw + buf * kRawBytes;
-    uint8_t* dst = vs + stage * kVBytes;
+  // Slot `slot`'s V tile as it lies, transposed to K-major and rebiased to
+  // int8 beside it: this thread's share.
+  const auto store_v = [&](int slot) {
+    const uint8_t* src = slots + slot * kSlotBytes + kTileBytes;
+    uint8_t* dst = slots + slot * kSlotBytes + kTileBytes + kRawBytes;
 #pragma unroll
     for (int i = 0; i < kVBlocks; ++i) {
       int grp8, n0, c16, q;
@@ -450,9 +486,20 @@ __global__ void __launch_bounds__(attn::kBlockThreads, 1)
       }
     }
   };
+  // The transposed V tile of slot `slot`, as the context's B operand.
+  const auto v_addr = [&](int slot) {
+    return wg::smem_u32(slots + slot * kSlotBytes + kTileBytes + kRawBytes);
+  };
 
-  load_k(0, 0);
-  im::cp_async_commit();
+  if (tid == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      wg::mbar_init(full + s, kBlockThreads);
+      wg::mbar_init(vfull + s, kBlockThreads / 32);
+      wg::mbar_init(empty + s, kBlockThreads / 32);
+    }
+  }
+  __syncthreads();
+  for (int j = 0; j < kLead && j < iters; ++j) load_slot(j);
   // The table, one copy a half-warp lane: entry i's 16 copies are 4 uint4
   // stores.
 #pragma unroll 8
@@ -518,28 +565,27 @@ __global__ void __launch_bounds__(attn::kBlockThreads, 1)
   for (int it = 0; it < iters; ++it) {
     const int k0 = (u0 + u) * kKeys;
     const bool last = u + 1 == ntiles;  // of this sweep
-    const int u_next = last ? 0 : u + 1;
-    const int phase_next = phase + (last ? 1 : 0);
-    im::cp_async_wait<0>();  // this iteration's K tile, the next one's V
-    fence_proxy_async();
-    // K(it) is complete; every warpgroup is done with the K stage the next
-    // copies refill (read by the scores of it - 1, waited for), with the
-    // raw V buffer they refill (transposed at it - 1) and with the V stage
-    // (read two steps back) that store_v refills.
-    __syncthreads();
-    if (it + 1 < iters) load_k(u_next, (it + 1) & 1);
-    // V is fetched two iterations ahead of its context, as it lies, and
-    // transposed one ahead.
-    if (it + 2 < iters && it + 2 >= 2 * ntiles) {
-      load_v((it + 2) % ntiles, it & 1);
-    }
-    im::cp_async_commit();
-
-    const uint32_t kaddr = wg::smem_u32(ks + (it & 1) * kTileBytes);
-    const uint32_t vaddr = wg::smem_u32(vs + (it % kVStages) * kVBytes);
+    const int slot = it % kSlots;
+    wg::mbar_wait(full + slot, static_cast<uint32_t>(it / kSlots) & 1u);
+    fence_proxy_async();  // the copies' bytes, for wgmma's async proxy
+    const uint32_t kaddr = wg::smem_u32(slots + slot * kSlotBytes);
 #pragma unroll
     for (int c = 0; c < kKeys / kNs; ++c) {
       // Keys 32 c .. 32 c + 31 of the tile: K rows 32 c .., V chunks 2 c.
+      if (phase == 2 && c == 1) {
+        // This tile's V, transposed, for the context of its keys 0 .. 31.
+        wg::mbar_wait(vfull + slot,
+                      static_cast<uint32_t>((it - 2 * ntiles) / kSlots) & 1u);
+      }
+      if (phase == 2 && (c == 1 || it > 2 * ntiles)) {
+        // The previous 32 keys' context: this tile's first half, or the
+        // previous tile's second.
+        const uint32_t vaddr =
+            c == 1 ? v_addr(slot) : v_addr((it - 1) % kSlots) + 2 * kCore;
+        wg::wgmma_fence();
+        mma_context(o, pa, desc(vaddr, kCore, kVGroup));
+        wg::wgmma_commit();
+      }
       wg::wgmma_fence();
 #pragma unroll
       for (int s = 0; s < kChunks / 2; ++s) {
@@ -549,12 +595,32 @@ __global__ void __launch_bounds__(attn::kBlockThreads, 1)
                      s);
       }
       wg::wgmma_commit();
-      if (c == 0 && it + 1 < iters && it + 1 >= 2 * ntiles) {
-        store_v((it + 1) & 1, (it + 1) % kVStages);
+      if (c == 0) {
+        const int j = it + kLead;
+        if (j < iters) {
+          if (j >= kSlots) {
+            wg::mbar_wait(empty + j % kSlots,
+                          static_cast<uint32_t>(j / kSlots - 1) & 1u);
+          }
+          load_slot(j);
+        }
+        if (it + 1 < iters && it + 1 >= 2 * ntiles) {
+          const int s1 = (it + 1) % kSlots;
+          wg::mbar_wait(full + s1, static_cast<uint32_t>((it + 1) / kSlots) &
+                                       1u);
+          store_v(s1);
+          fence_proxy_async();  // the stores, for wgmma's async proxy
+          __syncwarp();
+          if (lane == 0) wg::mbar_arrive(vfull + s1);
+        }
       }
-      wg::wgmma_wait<0>();  // also the context of the last 32 keys
+      wg::wgmma_wait<0>();  // also the previous 32 keys' context
       wg::fence_operands(acc);
       fence_words(pa);
+      if (c == 0 && it > 0 && lane == 0) {
+        // The previous slot's K tile and V tile are read.
+        wg::mbar_arrive(empty + (it - 1) % kSlots);
+      }
       const int k0c = k0 + kNs * c;
       const bool edge = k0c + kNs - 1 > m0 ||
                         (kBand && k0c < m0 + kRows - p.window);
@@ -565,9 +631,6 @@ __global__ void __launch_bounds__(attn::kBlockThreads, 1)
         sweep_tile<1, kBand>(edge, acc, rw, pa, dist, p);
       } else {
         sweep_tile<2, kBand>(edge, acc, rw, pa, dist, p);
-        wg::wgmma_fence();
-        mma_context(o, pa, desc(vaddr + 2 * kCore * c, kCore, kVGroup));
-        wg::wgmma_commit();
       }
     }
 
@@ -604,9 +667,14 @@ __global__ void __launch_bounds__(attn::kBlockThreads, 1)
         rw.d[h] = row_div(s);
       }
     }
-    phase = phase_next;
-    u = u_next;
+    phase += last ? 1 : 0;
+    u = last ? 0 : u + 1;
   }
+  // The last 32 keys' context.
+  wg::wgmma_fence();
+  mma_context(o, pa,
+              desc(v_addr((iters - 1) % kSlots) + 2 * kCore, kCore, kVGroup));
+  wg::wgmma_commit();
   wg::wgmma_wait<0>();
   wg::fence_operands(o);
 

@@ -630,11 +630,18 @@ def test_card_attention_kernels_equal_their_plain_forms():
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("s,heads,kv,window", [
-    (1024, 64, 4, 0), (1024, 64, 8, 128), (272, 32, 2, 0), (272, 16, 2, 128),
-    (200, 32, 2, 0), (200, 16, 2, 128), (272, 8, 2, 0), (200, 12, 3, 128),
-    (257, 4, 1, 0), (257, 4, 1, 128)])
-def test_card_fused_attention_equals_its_plain_form(s, heads, kv, window):
+@pytest.mark.parametrize("s,heads,kv,window,b", [
+    (1024, 64, 4, 0, 2), (1024, 64, 8, 128, 2), (272, 32, 2, 0, 2),
+    (272, 16, 2, 128, 2), (200, 32, 2, 0, 2), (200, 16, 2, 128, 2),
+    (272, 8, 2, 0, 2), (200, 12, 3, 128, 2), (257, 4, 1, 0, 2),
+    (257, 4, 1, 128, 2),
+    # The schedule's edges: one key tile (S 1, 64), two (S 65), so the
+    # groups' offset meets the sweeps' ends; a single group of 4 heads; a
+    # band whose first key tile is past 0; one batch entry.
+    (1, 8, 2, 0, 2), (1, 8, 2, 128, 2), (64, 4, 1, 0, 2),
+    (64, 8, 2, 128, 2), (65, 4, 1, 0, 2), (65, 16, 2, 128, 2),
+    (2049, 8, 2, 128, 2), (2049, 4, 1, 0, 1), (300, 4, 1, 128, 1)])
+def test_card_fused_attention_equals_its_plain_form(s, heads, kv, window, b):
     """The fused kernel against its plain version on the card: GQA 16:1
     and 8:1 at the block's head sizes, causal and banded with sinks, at
     sequences that are no multiple of a tile, and 4:1; once on uniform
@@ -643,7 +650,7 @@ def test_card_fused_attention_equals_its_plain_form(s, heads, kv, window):
     dev = _card()
     gen = torch.Generator().manual_seed(s + heads + window)
     for spread in (False, True):
-        q, k, v, sinks, qkv = _attention_inputs(gen, 2, s, heads, kv)
+        q, k, v, sinks, qkv = _attention_inputs(gen, b, s, heads, kv)
         if not spread:
             for t in (q, k):
                 t.copy_(torch.randint(0, 256, t.shape, generator=gen,
@@ -656,14 +663,14 @@ def test_card_fused_attention_equals_its_plain_form(s, heads, kv, window):
         want = q8attn_masked_plain(q, k, v, ZP, rps, lut, window, sinks, rpc)
         qc = qkv.to(dev)
         width = qc.shape[-1]
-        qd = qc[..., :heads * 192].view(2, s, heads, 192).permute(0, 2, 1, 3)
+        qd = qc[..., :heads * 192].view(b, s, heads, 192).permute(0, 2, 1, 3)
         kd = qc[..., heads * 192:(heads + kv) * 192].view(
-            2, s, kv, 192).permute(0, 2, 3, 1)
-        vd = qc[..., (heads + kv) * 192:width].view(2, s, kv, 128).permute(
+            b, s, kv, 192).permute(0, 2, 3, 1)
+        vd = qc[..., (heads + kv) * 192:width].view(b, s, kv, 128).permute(
             0, 2, 1, 3)
         lutd, sinksd = lut.to(dev), None if sinks is None else sinks.to(dev)
-        ctx = torch.zeros((2, s, heads * 128), dtype=torch.uint8, device=dev)
-        out = ctx.view(2, s, heads, 128).permute(0, 2, 1, 3)
+        ctx = torch.zeros((b, s, heads * 128), dtype=torch.uint8, device=dev)
+        out = ctx.view(b, s, heads, 128).permute(0, 2, 1, 3)
         tk.reset_launch_counts()
         q8attn_masked_cuda(qd, kd, vd, ZP, rps, lutd, window, sinksd, rpc,
                            out=out)
